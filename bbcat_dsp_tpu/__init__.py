@@ -1,8 +1,8 @@
-"""bbcat_dsp_tpu — a TPU-native multi-channel audio DSP framework.
+"""bbcat_dsp_tpu — a multi-channel audio DSP framework on JAX/XLA.
 
-A brand-new framework (JAX / XLA / Pallas / pjit) with the capability surface
-of the BBC's ``bbcat-dsp`` C++ library (reference: /root/reference), built
-TPU-first rather than ported:
+A brand-new framework (JAX / XLA / shard_map) with the capability surface
+of the BBC's ``bbcat-dsp`` C++ library, rebuilt as batched array programs
+for an accelerator rather than ported:
 
 * sample-format conversion / dithering        (ref: src/SoundFormatConversions.*)
 * ring / delay / multilayer buffering         (ref: src/SoundDelayBuffer.*, RingBuffer.h,

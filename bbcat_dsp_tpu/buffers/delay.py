@@ -1,6 +1,6 @@
 """Multichannel delay / ring buffers with sample-format edges.
 
-TPU-native redesign of SoundDelayBuffer / SoundRingBuffer
+Batched-array redesign of SoundDelayBuffer / SoundRingBuffer
 (ref: src/SoundDelayBuffer.h:8,105 and src/SoundDelayBuffer.cpp): the
 reference stores raw interleaved bytes of arbitrary format and converts on
 every access; here the canonical store is a float32 ``[C, L]`` device ring

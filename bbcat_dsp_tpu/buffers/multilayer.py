@@ -1,7 +1,7 @@
 """MultilayerBuffer: mix N producers with different block sizes into one
 stream.
 
-TPU-native redesign of the reference's ``MultilayerBuffer<T>``
+Batched-array redesign of the reference's ``MultilayerBuffer<T>``
 (ref: src/MultilayerBuffer.h:45-431): per-layer write positions, readable
 frames = frames complete across ALL layers (``minposition``), furthest
 write = ``maxposition`` (diagram at src/MultilayerBuffer.h:30-43).  The
@@ -37,7 +37,7 @@ class MultilayerBuffer:
 
     ``capacity`` must cover the largest spread between the slowest and
     fastest producer (the reference grows dynamically, ref: ReserveSpace
-    .h:160-167; here capacity is explicit — static shapes are the TPU
+    .h:160-167; here capacity is explicit — static shapes are the jit
     contract — and over-running it raises).
     """
 

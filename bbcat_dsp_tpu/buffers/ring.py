@@ -1,6 +1,6 @@
 """Generic circular buffer as a functional state pytree.
 
-TPU-native equivalent of the reference's ``RingBuffer<T>``
+Batched-array equivalent of the reference's ``RingBuffer<T>``
 (ref: src/RingBuffer.h:10-159): the mutable ring + write cursor becomes an
 explicit ``(data [..., L], writepos)`` pytree threaded through pure jitted
 ops.  Channel axes lead; time is the last (lane) axis.
@@ -34,8 +34,8 @@ def ring_write(ring: Ring, block: jax.Array) -> Ring:
     """Write ``block [..., B]`` at the cursor and advance
     (ref: RingBuffer::Write, src/RingBuffer.h:68-107).
 
-    Scatter-free: TPU scatters cost ~2 orders of magnitude more than
-    contiguous updates, so the (possibly wrapping) write is one contiguous
+    Scatter-free: the (possibly wrapping) write avoids element
+    scatters, so the (possibly wrapping) write is one contiguous
     ``dynamic_update_slice`` into an L+B extension, with the overhang
     folded back by masked elementwise select.
     """

@@ -1,5 +1,6 @@
 """Partitioned FFT convolution engines (the reference's documented-absent
-BlockConvolver/Convolver capability, ref: README:38-44, rebuilt TPU-first).
+BlockConvolver/Convolver capability, ref: README:38-44, rebuilt as batched
+array programs).
 """
 
 from .fft import rfft_planes, irfft_planes, cmul, register_backend, backends, default_backend, set_precision
@@ -17,7 +18,6 @@ from .nonuniform import (
     NonUniformState,
     nonuniform_render,
     nonuniform_render_looped,
-    nonuniform_render_pinned,
 )
 from .offline import offline_convolve
 from .matrix import (
@@ -46,7 +46,6 @@ __all__ = [
     "NonUniformState",
     "nonuniform_render",
     "nonuniform_render_looped",
-    "nonuniform_render_pinned",
     "offline_convolve",
     "MatrixConvolver",
     "matrix_step",

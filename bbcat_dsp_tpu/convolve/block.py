@@ -2,18 +2,18 @@
 exchange — the framework's flagship streaming engine.
 
 The reference's BlockConvolver/Convolver sources are documented-but-absent
-(ref: README:38-44; SURVEY.md §0, §2.2, §3.7); this is the TPU-native design
-of that capability:
+(ref: README:38-44; SURVEY.md §0, §2.2, §3.7); this is a batched-array
+design of that capability:
 
 * channels are a batched leading axis (one fused kernel replaces the
   reference Convolver's thread-per-channel design, ref: README:43),
-* spectra are re/im PLANE arrays (``[2, ..., F]`` float32 — the TPU backend
-  has no complex dtype; see :mod:`bbcat_dsp_tpu.convolve.fft`),
+* spectra are re/im PLANE arrays (``[2, ..., F]`` float32; see
+  :mod:`bbcat_dsp_tpu.convolve.fft`),
 * the P-deep spectral delay line is a circular buffer indexed by step —
   written with one ``dynamic_update_slice`` per block and *gathered* in
   rotated order for the MAC (no O(P) roll/copy per block; HBM traffic per
   block is exactly one read of the queue + one read of the IR spectra),
-* the spectral multiply-accumulate is elementwise float32 on the VPU,
+* the spectral multiply-accumulate is elementwise float32,
 * IR exchange runs old and new filters in parallel for ONE block and fades
   linearly between them (BASELINE.json "click-free via fade-in/fade-out";
   contract defined in bbcat_dsp_tpu.golden.convolve) — driven host-side, so
@@ -95,12 +95,7 @@ def partition_ir(ir: np.ndarray, block: int, nparts: int | None = None,
         sp = permute_half_spectrum(sp, 2 * block,
                                    radix=spec.radix if spec else None)
     sp = np.moveaxis(sp, 1, 0)  # [P, C, F]
-    from ..utils.layouts import device_put_row_major
-
-    # committed ROW-MAJOR: the pinned render programs declare row-major
-    # entry layouts, and jax's default 4-D transfer layout on TPU is
-    # twisted — plain asarray cost a 1.4 ms H relayout per pod render
-    return device_put_row_major(
+    return jnp.asarray(
         np.stack([sp.real, sp.imag]).astype(np.float32)
     )  # [2, P, C, F]
 
@@ -120,9 +115,8 @@ def convolver_init(
 def _roll_slots(a: jax.Array, shift: int, axis: int = 1) -> jax.Array:
     """Static circular roll: ``out[s] = a[(s + shift) % n]`` along ``axis``.
 
-    Two contiguous slices + concat — never a gather (TPU element gathers
-    run ~100x slower than slices, and a traced-index permutation of the
-    spectral queue dominated the pod-config render)."""
+    Two contiguous slices + concat — never a gather, so a host-known
+    cursor costs no traced-index permutation of the spectral queue."""
     n = a.shape[axis]
     shift %= n
     if shift == 0:
@@ -190,33 +184,6 @@ def convolver_step_crossfade(
     return ConvolverState(queue, xt, state.step + 1), y
 
 
-def _step_static_slot(state: ConvolverState, H: jax.Array, x: jax.Array,
-                      slot: int, spec: SpectralSpec | None = None):
-    """:func:`convolver_step` with a compile-time queue slot — the circular
-    rotation becomes static slices (no gather)."""
-    from ..ops_pallas_hook import maybe_rotated_mac
-
-    B = x.shape[-1]
-    P = state.queue.shape[1]
-    xt = rfft_half_planes(x, 2 * B, spec=spec)
-    s = jnp.asarray(half_window_signs(2 * B, spec=spec))
-    X = state.prev + s * xt
-    queue = state.queue.at[:, slot].set(X.astype(state.queue.dtype))
-    acc = maybe_rotated_mac(queue, H, slot,
-                            mode=spec.mac if spec else None)
-    if acc is None:
-        acc_r = jnp.zeros_like(X[0])
-        acc_i = jnp.zeros_like(X[0])
-        for p in range(P):
-            q = queue[:, (slot - p) % P]
-            h = H[:, p]
-            acc_r = acc_r + (q[0] * h[0] - q[1] * h[1])
-            acc_i = acc_i + (q[0] * h[1] + q[1] * h[0])
-        acc = jnp.stack([acc_r, acc_i])
-    y = irfft_tail_planes(acc, 2 * B, spec=spec).astype(x.dtype)
-    return ConvolverState(queue, xt, state.step + 1), y
-
-
 @partial(jax.jit, static_argnames=("block", "slot0", "spec"),
          donate_argnums=(0,))
 def convolver_render(state: ConvolverState, H: jax.Array, x: jax.Array,
@@ -228,8 +195,8 @@ def convolver_render(state: ConvolverState, H: jax.Array, x: jax.Array,
     ``n`` blocks transform in one batched rFFT and the MAC becomes P
     shifted elementwise multiply-adds over ``[n, C, F]`` — no per-block
     scan.  Replaces both the dynamic-gather scan and the unrolled
-    static-slot variant (whose fully-unrolled program took the remote
-    compiler minutes at large P).  State stays slot-encoded and
+    static-slot variant (whose fully-unrolled program compiled slowly at
+    large P).  State stays slot-encoded and
     interchangeable with the streaming :func:`convolver_step`.
 
     ``slot0`` (``state.step % P``, when the caller tracks it host-side)
@@ -305,12 +272,11 @@ class BlockConvolver:
         if ir2.shape[0] == 1 and nchannels > 1:
             ir2 = np.broadcast_to(ir2, (nchannels, ir2.shape[1]))
         self.block = int(block)
-        # FREEZE the spectral configuration now (layout/radix/cmatmul/
-        # kernel gates): env toggles are read exactly once, and the
-        # resolution probes that the layout's program builds on this
-        # backend BEFORE sizing spectral state (falls back to std with a
-        # warning if it doesn't).  A later env change cannot alter this
-        # engine's traced program.
+        # FREEZE the spectral configuration now (backend/layout/radix/
+        # cmatmul): env toggles are read exactly once, and a permuted
+        # resolution probes that its program builds BEFORE sizing spectral
+        # state (falls back to std with a warning if it doesn't).  A later
+        # env change cannot alter this engine's traced program.
         self.spectral = (spectral if spectral is not None
                          else resolve_spectral_spec(2 * self.block))
         self.H = partition_ir(ir2, self.block, nparts, spec=self.spectral)

@@ -1,26 +1,24 @@
-"""Real-FFT abstraction over re/im PLANES — no complex dtypes anywhere.
+"""Real-FFT abstraction over re/im PLANES.
 
 The reference had a pluggable FFT interface with FFTW and KISS backends
-(ref: README:46-51, documented-absent sources; debian/control:5).  The TPU
-twist: the TPU backend in this environment implements neither
-``fft`` nor complex dtypes at all (both return UNIMPLEMENTED), so the
+(ref: README:46-51, documented-absent sources; debian/control:5).  Here the
 framework's spectral representation is a stacked real array ``[2, ..., F]``
-(plane 0 = real, plane 1 = imag, F on the 128-lane axis) and two backends
-provide the transforms:
+(plane 0 = real, plane 1 = imag), and two backends provide the transforms:
 
-* ``"dftmm"`` (TPU default): DFT as two real matmuls against precomputed
-  cos/sin matrices, ``Precision.HIGHEST`` (float32-accurate on the MXU —
-  measured 1.4e-7 relative; the default bf16 path would be 2.8e-3).  The
-  partitioned convolver keeps FFT sizes at 2*block (~1024), where an
-  O(N*F) matmul-DFT is a few microseconds on a 200-TFLOP MXU and the
-  matrices live comfortably in VMEM.  This IS the TPU-native FFT for this
-  workload — asymptotics only matter when N is large, and partitioning
-  exists precisely to keep N small.
+* ``"xla"`` (the default everywhere): ``jnp.fft`` wrapped to/from the
+  plane layout.  XLA lowers it to cuFFT on the GPU and to its own FFT on
+  the CPU.
 
-* ``"xla"`` (CPU default): ``jnp.fft`` wrapped to/from the plane layout.
+* ``"dftmm"``: the DFT as real matrix products against precomputed
+  cos/sin matrices at ``Precision.HIGHEST`` (float32 outside the tensor
+  cores; lower precisions run float32 products in TF32 on the GPU, which
+  the >= 90 dB convolution contract does not survive).  Sizes above
+  ``_MAX_DIRECT`` use a four-step factorisation or, for the half-window
+  engine, the permuted spectral layout below.  Kept as a named backend for
+  A/B measurements; nothing selects it by default.
 
-Complex helpers (:func:`cmul`, :func:`cmac`) are explicit elementwise VPU
-arithmetic on the planes.
+Complex helpers (:func:`cmul`) are explicit elementwise arithmetic on the
+planes.
 """
 
 from __future__ import annotations
@@ -41,8 +39,6 @@ __all__ = [
     "register_backend",
     "backends",
     "half_engine_layout",
-    "half_sign_section",
-    "half_sign_tail",
     "spectral_nbins",
     "permute_half_spectrum",
     "unpermute_half_spectrum",
@@ -52,19 +48,16 @@ __all__ = [
     "resolve_spectral_spec",
 ]
 
-# MXU operand precision for the DFT matmuls.  Measured on the full 64ch x
-# 32k-tap convolver chain vs the float64 golden model:
-#   HIGH    (bf16x2-ish operand splitting, ~1.2e-5): 94 dB system SNR
-#   HIGHEST (full f32-faithful, ~1.3e-7):           136 dB system SNR
-# Both clear the >=90 dB requirement; HIGH is the default because the DFT
-# matmuls are ~half the per-block cost and HIGH runs them ~1.5x faster.
-# Flip with set_precision() when maximum accuracy matters more than speed.
-_PREC = jax.lax.Precision.HIGH
+# Matrix-product precision of the dftmm backend.  HIGHEST keeps the
+# products in float32; HIGH and DEFAULT run them in reduced-precision
+# tensor-core formats (TF32 on the GPU), ~11 mantissa bits, which costs
+# the convolution engines their >= 90 dB contract.
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def set_precision(p) -> None:
-    """Set MXU precision for DFT matmuls ("high"/"highest" or a
-    jax.lax.Precision).  Takes effect for newly traced computations."""
+    """Set the dftmm backend's matrix-product precision ("high"/"highest"
+    or a jax.lax.Precision).  Takes effect for newly traced computations."""
     global _PREC
     if isinstance(p, str):
         p = getattr(jax.lax.Precision, p.upper())
@@ -100,7 +93,7 @@ def _mats(n: int):
 
 
 # direct matmul-DFT up to this size; beyond it, Cooley-Tukey four-step with
-# balanced factors (matrix constants stay small and MXU-shaped)
+# balanced factors (matrix constants stay small)
 _MAX_DIRECT = 2048
 
 _CMATS: dict[int, tuple] = {}
@@ -159,7 +152,7 @@ def _cmatmul(ar, ai, br, bi, prec=None, mode: str | None = None):
     """(ar + i ai) @ (br + i bi) with configurable-precision real matmuls.
 
     ``mode="karatsuba"`` switches to the 3-matmul formulation
-    (re = t1 - t2, im = (ar+ai)@(br+bi) - t1 - t2) — 25% fewer MXU flops
+    (re = t1 - t2, im = (ar+ai)@(br+bi) - t1 - t2) — 25% fewer matmul flops
     at ~1.5x the rounding of the classic 4-matmul form.  ``mode=None``
     falls back to the BBCAT_DSP_CMATMUL env toggle (trace-time read;
     engines pass the mode from their frozen SpectralSpec instead)."""
@@ -261,40 +254,33 @@ def _rfft_halfwin_large(x: jax.Array, n: int, prec=None,
 # (window assembly, the partition MAC), so the bin ORDER of the half-window
 # spectral representation is free as long as every party — forward
 # transform, (-1)^k window signs, IR spectra, queue state, inverse — agrees.
-# For n > _MAX_DIRECT the standard four-step pays two HBM-materialised
-# transposes per transform (the swapaxes between stages dominated the
-# config-#5 render: ~35 ms of staged XLA vs a ~5 ms roofline).  The
-# permuted layout removes ALL transposes by splitting n = r * n1 with a
-# tiny OUTER radix r = 8:
+# For n > _MAX_DIRECT the standard four-step pays two materialised
+# transposes per transform.  The permuted layout removes ALL transposes by
+# splitting n = r * n1 with a small OUTER radix r:
 #
 #   forward  (input x[j], j = n2*n1 + n1i, n1 FAST = natural memory view):
-#     stage 1 (VPU):  Y[k2, n1i] = sum_{n2 < r/2} x[n2, n1i] W_r^{n2 k2}
+#     stage 1:  Y[k2, n1i] = sum_{n2 < r/2} x[n2, n1i] W_r^{n2 k2}
 #                     (half-window: rows n2 >= r/2 are zero; x real)
-#     stage 2 (VPU):  T = Y * W_n^{n1i k2}           (elementwise twiddle)
-#     stage 3 (MXU):  Z[k2, k1] = sum_{n1i} T[k2, n1i] W_n1^{n1i k1}
+#     stage 2:  T = Y * W_n^{n1i k2}           (elementwise twiddle)
+#     stage 3:  Z[k2, k1] = sum_{n1i} T[k2, n1i] W_n1^{n1i k1}
 #                     — ONE batched matmul, contraction over the LAST axis
-#   storage (TILE-ALIGNED order, round 4): bin k = r*k1 + k2 lives at
+#   storage ("order 2"): bin k = r*k1 + k2 lives at
 #       q = k2*(n1/2) + k1          for k1 <  n1/2   (r aligned sections)
 #       q = r*(n1/2)  + k2          for k1 == n1/2   (the Nyquist TAIL)
-#     so every section is exactly n1/2 lanes — a multiple of 128 for all
-#     kernel-eligible sizes — and the whole flat bin axis maps to the TPU
-#     (8,128) tiled layout with no internal padding.  (The previous order
-#     q = k2*(n1/2+1) + k1 made the kernels' [r, n1h1] I/O pad 129 -> 256
-#     lanes per section: the hardware trace attributed 4.3 ms/render-group
-#     of boundary reshapes + ~1 ms of padded HBM traffic to it at the pod
-#     config — docs/PERFORMANCE.md "Config #5 residual attribution".)
+#     so every section is exactly n1/2 bins.  (The legacy "order 1",
+#     q = k2*(n1/2+1) + k1, survives only in checkpoint migration.)
 #     Tail bins with k > n/2 (k2 >= 1) hold the conjugate-mirror values
 #     the DFT naturally produces there; the inverse masks them.
 #   window signs: (-1)^k = (-1)^{k2} — constant per k2 section, then
 #     alternating per element over the r-bin Nyquist tail.
 #
 #   inverse tail (y[t], t = t2*n1 + t1, outputs t2 >= r/2 only):
-#     stage A (MXU):  G[k2, t1] = sum_{k1} (w X)[k2, k1] e^{+2pi i k1 t1/n1}
+#     stage A:  G[k2, t1] = sum_{k1} (w X)[k2, k1] e^{+2pi i k1 t1/n1}
 #                     (w = hermitian-half weights, 0 on the k > n/2 bins)
-#     stage B (VPU):  B = G * e^{+2pi i k2 t1 / n}
-#     stage C (VPU):  y[t2, t1] = Re sum_{k2} B[k2, t1] e^{+2pi i k2 t2/r} / n
+#     stage B:  B = G * e^{+2pi i k2 t1 / n}
+#     stage C:  y[t2, t1] = Re sum_{k2} B[k2, t1] e^{+2pi i k2 t2/r} / n
 #
-# Everything is elementwise/broadcast + one big MXU matmul per direction;
+# Everything is elementwise/broadcast + one big matmul per direction;
 # reshapes only split/merge adjacent axes (free).  Numerics match the
 # standard path (same _PREC matmuls) up to summation-order rounding.
 # ---------------------------------------------------------------------------
@@ -309,15 +295,10 @@ def _perm_radix(n: int, force: bool = False) -> int | None:
 
     BBCAT_DSP_PERM_RADIX selects the radix; the default ("auto") picks
     the largest radix <= 32 that keeps the inner transform in the
-    256..1024 window — the v5e A/B at config #5 measured monotonic gains
-    8 -> 16 -> 32 (26.9x -> 30.9x -> 32.8x RT with the fused kernels: the
-    dense [n1, n1/2+1] stage matmul dominates, so smaller n1 wins) and a
-    REGRESSION at 64 (31.3x: K = n1 = 128 under-utilises the MXU contract
-    dim, and the unrolled VPU butterfly stage keeps growing).  The lower
-    bound keeps n1 inside the Pallas kernels' constant budget
-    (``ops.pallas.perm_fft.MAX_KERNEL_N1``); an explicit env radix
-    bypasses the window.  Falls back to 8, then std, when the candidates
-    do not divide ``n`` suitably.
+    256..1024 window (the dense [n1, n1/2+1] stage matmul dominates, so a
+    smaller n1 does less work until the unrolled butterfly stage takes
+    over).  An explicit env radix bypasses the window.  Falls back to 8,
+    then std, when the candidates do not divide ``n`` suitably.
 
     ``force`` serves EXPLICIT perm requests (resolve_spectral_spec
     layout="perm") at sizes the auto resolution leaves on the direct
@@ -382,9 +363,8 @@ def ensure_layout_usable(n: int, backend: str | None = None) -> str:
     ``n`` on the current jax backend, falling back to the standard layout
     (with a warning) if it does not.  Returns the layout that will be used.
 
-    The permuted layout is the default TPU path for large ``n``; its
-    program has failure modes the std path does not (Pallas/Mosaic kernel
-    acceptance, layout propagation).  Engine constructors call this BEFORE
+    The permuted layout's program is larger than the std path's and is
+    built only for the dftmm backend.  Engine constructors call this BEFORE
     sizing spectral queues so a user on a backend that rejects the perm
     program still gets a working convolver instead of a compile error at
     first render.  The probe compiles the forward+inverse pair once per
@@ -455,11 +435,10 @@ class SpectralSpec(NamedTuple):
 
     Engines resolve one of these at CONSTRUCTION (``resolve_spectral_spec``
     reads the env toggles exactly once) and pass it as a static argument
-    into every transform / kernel-hook call, so changing
-    ``BBCAT_DSP_PERM_LAYOUT`` / ``BBCAT_DSP_PERM_RADIX`` /
-    ``BBCAT_DSP_CMATMUL`` / ``BBCAT_DSP_PALLAS_*`` after an engine is built
-    provably cannot change that engine's traced program — the trace is a
-    pure function of the spec (VERDICT r3 weak #5).  The module-level
+    into every transform call, so changing ``BBCAT_DSP_PERM_LAYOUT`` /
+    ``BBCAT_DSP_PERM_RADIX`` / ``BBCAT_DSP_CMATMUL`` after an engine is
+    built provably cannot change that engine's traced program — the trace
+    is a pure function of the spec.  The module-level
     functions keep their env-resolved defaults (``spec=None``) for direct
     functional use.
 
@@ -471,11 +450,7 @@ class SpectralSpec(NamedTuple):
     backend: str           # "dftmm" | "xla" | registered name
     layout: str            # "std" | "perm"
     radix: int | None      # perm outer radix (None when layout == "std")
-    cmatmul: str           # "classic" | "karatsuba" (XLA-path stage dots)
-    kernel_cmatmul: str    # in-kernel stage-dot formulation (perm kernels)
-    permfft: str           # Pallas perm-FFT kernel gate: "auto"|"1"|"0"
-    mac: str               # Pallas MAC kernel gate: "auto"|"1"|"0"
-    fused_head: str        # fused head super-kernel gate: "auto"|"1"|"0"
+    cmatmul: str           # "classic" | "karatsuba" (dftmm stage dots)
 
 
 def resolve_spectral_spec(
@@ -507,49 +482,12 @@ def resolve_spectral_spec(
         lay = "std"
     r = (_perm_radix(n, force=(layout == "perm"))
          if lay == "perm" else None)
-    permfft = os.environ.get("BBCAT_DSP_PALLAS_PERMFFT", "auto")
-    if r and permfft == "1":
-        # loud fence over the WHOLE serve predicate (ceiling, floor, tile
-        # alignment): a FORCED kernel config the kernels cannot serve
-        # would otherwise silently route to the XLA formulation
-        # (VERDICT r3 next #8).  The auto radix window (256 <= n1 <= 1024,
-        # power-of-two n) keeps resolved configs servable up to
-        # n = 32768; only an explicit BBCAT_DSP_PERM_RADIX or an exotic
-        # block size can leave it.
-        from ..ops.pallas.perm_fft import (
-            MAX_KERNEL_N1,
-            MIN_KERNEL_N1,
-            kernel_serves_n1,
-        )
-
-        if not kernel_serves_n1(n // r):
-            import warnings
-
-            warnings.warn(
-                f"BBCAT_DSP_PALLAS_PERMFFT=1 forced, but n1 = {n // r} "
-                f"(n={n}, radix={r}) is outside what the perm-FFT kernels "
-                f"serve (MIN_KERNEL_N1={MIN_KERNEL_N1} <= n1 <= "
-                f"MAX_KERNEL_N1={MAX_KERNEL_N1}, n1 a multiple of 256); "
-                "the XLA formulation will run for this size (see "
-                "ops/pallas/perm_fft.py for the rationale)",
-                RuntimeWarning,
-                stacklevel=2,
-            )
-    cm = os.environ.get("BBCAT_DSP_CMATMUL", "classic")
-    from ..ops.pallas.perm_fft import resolve_kernel_cmatmul
-
-    kcm = resolve_kernel_cmatmul()
-    mac = os.environ.get("BBCAT_DSP_PALLAS_MAC", "auto")
     return SpectralSpec(
         n=int(n),
         backend=b,
         layout=lay,
         radix=r,
-        cmatmul=cm,
-        kernel_cmatmul=kcm,
-        permfft=permfft,
-        mac=mac,
-        fused_head=os.environ.get("BBCAT_DSP_PALLAS_FUSED_HEAD", mac),
+        cmatmul=os.environ.get("BBCAT_DSP_CMATMUL", "classic"),
     )
 
 
@@ -583,8 +521,7 @@ def _radix_fft(xs: list, sign: float):
     costs ~(r/2)·log2(r) genuine butterflies instead of the naive
     r·(r/2) MACs.  ``sign=-1`` is the forward DFT, ``+1`` the inverse
     kernel (no 1/r normalisation).  Returns r ``(re, im)`` pairs in
-    natural frequency order.  Works identically under jit, inside Pallas
-    kernels, and in the interpreter (it is just unrolled arithmetic).
+    natural frequency order (it is just unrolled arithmetic).
     """
     r = len(xs)
     if r == 1:
@@ -651,43 +588,14 @@ def _radix_fft(xs: list, sign: float):
     return out
 
 
-def half_sign_section(n: int, backend: str | None = None,
-                      spec: SpectralSpec | None = None) -> int:
-    """Section length of the half-window shift signs in the engine's
-    layout: 1 (std, alternating per bin) or ``n1//2`` (permuted, constant
-    per k2 section).  sign(bin) = (-1)^(bin // section) below
-    :func:`half_sign_tail`, then (-1)^(bin - tail) over the Nyquist
-    tail."""
-    _check_spec(spec, n)
-    layout = spec.layout if spec else half_engine_layout(n, backend)
-    if layout == "std":
-        return 1
-    r = spec.radix if spec else _perm_radix(n)
-    return n // r // 2
-
-
-def half_sign_tail(n: int, backend: str | None = None,
-                   spec: SpectralSpec | None = None) -> int:
-    """Flat position where the permuted layout's ALTERNATING Nyquist tail
-    begins (``r * n1/2``); equals the bin count for the standard layout
-    (no tail)."""
-    _check_spec(spec, n)
-    layout = spec.layout if spec else half_engine_layout(n, backend)
-    if layout == "std":
-        return n // 2 + 1
-    r = spec.radix if spec else _perm_radix(n)
-    return r * (n // r // 2)
-
-
 _PERMC: dict[tuple, tuple] = {}
 
 
 def _perm_consts(n: int, r: int | None = None):
     """Numpy constant planes for the permuted engine at size ``n``
     (keyed by (n, radix) — the radix is env-selectable; pass ``r``
-    explicitly when the caller's radix is fixed by its data shape, e.g.
-    the Pallas kernel wrappers, so a different env default cannot
-    mismatch the tables)."""
+    explicitly when the caller's radix is fixed by its data shape, so a
+    different env default cannot mismatch the tables)."""
     if r is None:
         r = _perm_radix(n)
     key = (n, r)
@@ -728,12 +636,6 @@ def _perm_rfft_half(x: jax.Array, n: int, prec=None,
         x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, m - T)])
     elif T > m:
         x = x[..., :m]
-    if prec is None:  # fused kernel follows the module precision setting
-        from ..ops_pallas_hook import maybe_perm_rfft_half
-
-        out = maybe_perm_rfft_half(x, n, spec=spec)
-        if out is not None:
-            return out
     lead = x.shape[:-1]
     xm = x.reshape(lead + (r // 2, n1))
     twr, twi = _perm_consts(n, r)[:2]
@@ -753,7 +655,7 @@ def _perm_rfft_half(x: jax.Array, n: int, prec=None,
     cr, ci = _cmats(n1)
     # tile-aligned order: r sections of exactly n1/2 bins from the dot
     # (Nyquist column dropped), then the r-bin Nyquist tail via the exact
-    # (-1)^j weights on the VPU
+    # (-1)^j weights
     zr, zi = _cmatmul(tr, ti, jnp.asarray(cr[:, :h]),
                       jnp.asarray(ci[:, :h]), prec,
                       mode=spec.cmatmul if spec else None)  # [.., r, h]
@@ -772,12 +674,6 @@ def _perm_irfft_tail(sp: jax.Array, n: int, prec=None,
     r = spec.radix if spec else _perm_radix(n)
     n1 = n // r
     n1h1 = n1 // 2 + 1
-    if prec is None:
-        from ..ops_pallas_hook import maybe_perm_irfft_tail
-
-        out = maybe_perm_irfft_tail(sp, n, spec=spec)
-        if out is not None:
-            return out
     lead = sp.shape[1:-1]
     twr, twi, wr, wi = _perm_consts(n, r)
     h = n1 // 2
@@ -1021,8 +917,9 @@ _BACKENDS: dict[str, tuple] = {
 
 
 def default_backend() -> str:
-    """dftmm on TPU-like backends (no fft/complex support), xla on CPU/GPU."""
-    return "xla" if jax.default_backend() == "cpu" else "dftmm"
+    """The transform backend engines resolve when none is named: ``"xla"``
+    (``jnp.fft``) on every platform."""
+    return "xla"
 
 
 def register_backend(name: str, rfft_fn, irfft_fn) -> None:
@@ -1052,8 +949,8 @@ def rfft_half_planes(x: jax.Array, n: int, backend: str | None = None,
     second half), so streaming engines transform only n/2 NEW samples per
     block instead of the whole 2B window — half the forward-DFT matmul.
 
-    ``spec`` (a frozen :class:`SpectralSpec`) fixes backend/layout/radix/
-    kernel gates; without it they resolve from env at trace time.
+    ``spec`` (a frozen :class:`SpectralSpec`) fixes backend/layout/radix;
+    without it they resolve from env at trace time.
     """
     _check_spec(spec, n)
     b = spec.backend if spec else (backend or default_backend())
@@ -1136,7 +1033,7 @@ def irfft_planes(spec: jax.Array, n: int, backend: str | None = None,
 
 
 def cmul(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Elementwise complex multiply of two plane arrays (VPU, float32)."""
+    """Elementwise complex multiply of two plane arrays (float32)."""
     return jnp.stack(
         [a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]], axis=0
     )

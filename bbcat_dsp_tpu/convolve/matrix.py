@@ -7,8 +7,9 @@ config #3: 64-in x 2-out with click-free IR swap).
 
 The per-block mix-down  Y[o,f] = sum_{p,i} Q[p,i,f] * H[p,i,o,f]  is a
 contraction over (partitions x inputs) — done as four real einsums on the
-re/im planes with ``Precision.HIGHEST`` (float32-accurate MXU; the operand
-sizes make it bandwidth-bound, so the MXU contraction is essentially free).
+re/im planes with ``Precision.HIGHEST`` (float32 products; the operand
+sizes make it bandwidth-bound, so the contraction precision is essentially
+free).
 
 Shares :class:`ConvolverState` (queue is per-INPUT-channel) and the
 crossfade contract with :mod:`bbcat_dsp_tpu.convolve.block`.
@@ -56,10 +57,7 @@ def partition_ir_matrix(ir: np.ndarray, block: int, nparts: int | None = None,
         sp = permute_half_spectrum(sp, 2 * block,
                                    radix=spec.radix if spec else None)
     sp = np.moveaxis(sp, 2, 0)  # [P, ci, co, F]
-    from ..utils.layouts import device_put_row_major
-
-    return device_put_row_major(
-        np.stack([sp.real, sp.imag]).astype(np.float32))
+    return jnp.asarray(np.stack([sp.real, sp.imag]).astype(np.float32))
 
 
 def _mix(q_rot: jax.Array, H: jax.Array) -> jax.Array:
@@ -108,8 +106,8 @@ def matrix_render(state: ConvolverState, H: jax.Array, x: jax.Array,
     batched rFFT and the per-block mix-down becomes P shifted einsums:
     ``Y[j] = sum_p Xwin[j-p] (x) H[p]`` (the same restructuring as the
     non-uniform head, :mod:`bbcat_dsp_tpu.convolve.nonuniform`).  A
-    per-block ``lax.scan`` paid ~20 XLA ops/block of pure dispatch at
-    config #3's tiny shapes (52x RT); this path is ~5x fewer ops total.
+    per-block ``lax.scan`` pays ~20 XLA ops/block of pure dispatch at
+    config #3's tiny shapes; this path is ~5x fewer ops total.
     State semantics (slot-encoded queue, prev half-spectrum, step) stay
     interchangeable with the streaming :func:`matrix_step`.
     """

@@ -5,7 +5,7 @@ Level 2 (bandwidth): the remainder runs at ``B2 = ratio * B``.  HBM traffic
 drops ~3x vs uniform partitioning (bytes/s ~ 16*C*fs*(P_head + P_tail/ratio)
 instead of 16*C*fs*N/B) while output latency stays one small block.
 
-The decisive TPU restructuring: within one super-block of ``ratio`` small
+The decisive restructuring: within one super-block of ``ratio`` small
 blocks there is NO sequential dependency — the spectral delay line is just
 input history, all of it known up front.  So the head is evaluated as a
 batched frequency-domain FIR over the block index:
@@ -50,14 +50,13 @@ from .fft import (
 )
 
 # (head, tail) spectral specs — the head engine runs at 2*block, the tail
-# at 2*super_block; each freezes its own layout/radix/kernel gates
+# at 2*super_block; each freezes its own backend/layout/radix
 Specs = tuple
 
 __all__ = [
     "NonUniformState",
     "NonUniformConvolver",
     "nonuniform_render",
-    "nonuniform_render_pinned",
 ]
 
 
@@ -105,22 +104,12 @@ def _head_spectra(prev_xt: jax.Array, x: jax.Array, B: int, ratio: int,
     return X, xt[:, -1]
 
 
-def _head_mac(xext: jax.Array, H: jax.Array, ratio: int,
-              mac: str | None = None):
-    """acc[i] = sum_p xext[P+i-p] * H[p] — P fused shifted complex MACs.
+def _head_mac(xext: jax.Array, H: jax.Array, ratio: int):
+    """acc[i] = sum_p xext[P+i-p] * H[p] — P shifted complex MACs, which
+    XLA fuses into one elementwise loop.
 
     ``xext [2, P+ratio, C, F]``, ``H [2, P, C, F]`` -> ``[2, ratio, C, F]``.
-
-    With ``BBCAT_DSP_PALLAS_MAC=1`` (or a frozen ``mac`` mode) the fused
-    Pallas kernel (:mod:`bbcat_dsp_tpu.ops.pallas.spectral_mac`) runs
-    instead of the XLA formulation (bit-exact; see that module for when it
-    pays).
     """
-    from ..ops_pallas_hook import maybe_pallas_mac
-
-    out = maybe_pallas_mac(xext, H, ratio, mode=mac)
-    if out is not None:
-        return out
     P = H.shape[1]
     acc_r = jnp.zeros_like(xext[0, :ratio])
     acc_i = jnp.zeros_like(xext[0, :ratio])
@@ -137,18 +126,10 @@ def _head_mac(xext: jax.Array, H: jax.Array, ratio: int,
 def _head_step(xcarry, prev, H_head, x, B: int, ratio: int,
                spec: SpectralSpec | None = None):
     """Batched head evaluation.  Returns (y_head [C, SB], xcarry', prev')."""
-    from ..ops_pallas_hook import maybe_fused_head
-
-    fused = maybe_fused_head(x, xcarry, prev, H_head, B,
-                             mode=spec.fused_head if spec else None,
-                             layout=spec.layout if spec else None)
-    if fused is not None:
-        return fused
     C, SB = x.shape
     Xnew, prev_xt = _head_spectra(prev, x, B, ratio, spec)  # [2,ratio,C,F]
     xext = jnp.concatenate([xcarry, Xnew], axis=1)      # [2, P+ratio, C, F]
-    acc = _head_mac(xext, H_head, ratio,
-                    mac=spec.mac if spec else None)     # [2, ratio, C, F]
+    acc = _head_mac(xext, H_head, ratio)                # [2, ratio, C, F]
     y2 = irfft_tail_planes(acc, 2 * B, spec=spec)       # [ratio, C, B]
     y_head = jnp.moveaxis(y2, 0, 1).reshape(C, SB)
     P = H_head.shape[1]
@@ -235,10 +216,9 @@ def _super_step_crossfade(
     C = x.shape[0]
     Xnew, prev_xt = _head_spectra(state.prev, x, B, ratio, sh)
     xext = jnp.concatenate([state.xcarry, Xnew], axis=1)
-    mac = sh.mac if sh else None
-    acc_new = _head_mac(xext, H_head_new, ratio, mac=mac)
+    acc_new = _head_mac(xext, H_head_new, ratio)
     # old filter needed only for block 0 of the fade
-    acc_old0 = _head_mac(xext[:, : H_head.shape[1] + 1], H_head, 1, mac=mac)
+    acc_old0 = _head_mac(xext[:, : H_head.shape[1] + 1], H_head, 1)
     y2_new = irfft_tail_planes(acc_new, 2 * B, spec=sh)  # [ratio, C, B]
     y_old0 = irfft_tail_planes(acc_old0, 2 * B, spec=sh)[0]  # [C, B]
     ramp = (jnp.arange(B, dtype=x.dtype) + 1) / B
@@ -265,7 +245,7 @@ def _head_step_single(xcarry, prev, H_head, x,
     B = x.shape[-1]
     Xnew, prev_xt = _head_spectra(prev, x, B, 1, spec)  # [2, 1, C, F]
     xext = jnp.concatenate([xcarry, Xnew], axis=1)
-    acc = _head_mac(xext, H_head, 1, mac=spec.mac if spec else None)
+    acc = _head_mac(xext, H_head, 1)
     y = irfft_tail_planes(acc, 2 * B, spec=spec)[0]     # [C, B]
     P = H_head.shape[1]
     return y, xext[:, -P:], prev_xt
@@ -278,10 +258,9 @@ def _head_step_single_crossfade(xcarry, prev, H_old, H_new, x,
     B = x.shape[-1]
     Xnew, prev_xt = _head_spectra(prev, x, B, 1, spec)
     xext = jnp.concatenate([xcarry, Xnew], axis=1)
-    mac = spec.mac if spec else None
-    y_old = irfft_tail_planes(_head_mac(xext, H_old, 1, mac=mac), 2 * B,
+    y_old = irfft_tail_planes(_head_mac(xext, H_old, 1), 2 * B,
                               spec=spec)[0]
-    y_new = irfft_tail_planes(_head_mac(xext, H_new, 1, mac=mac), 2 * B,
+    y_new = irfft_tail_planes(_head_mac(xext, H_new, 1), 2 * B,
                               spec=spec)[0]
     ramp = (jnp.arange(B, dtype=x.dtype) + 1) / B
     y = (1 - ramp) * y_old + ramp * y_new
@@ -298,6 +277,59 @@ def _choose_chunk(total: int, limit: int) -> int:
     return best
 
 
+def _gather_supers(x: jax.Array, nsup: int) -> jax.Array:
+    """``[C, nsup * B2]`` -> ``[nsup, C, B2]``: the group's super-blocks
+    on the leading (batch) axis."""
+    C, T = x.shape
+    return jnp.moveaxis(x.reshape(C, nsup, T // nsup), 1, 0)
+
+
+def _tail_group_mac(queue: jax.Array, step: jax.Array, xt: jax.Array,
+                    H: jax.Array, signs: jax.Array,
+                    slot0: int | None = None) -> jax.Array:
+    """Whole-group tail MAC over the xt-slot queue layout.
+
+    ``queue [2, Pt, C, F]`` holds the past Pt half spectra slot-encoded
+    (slot ``s`` = super ``j`` with ``j % Pt == s``), ``xt [2, Pt, C, F]``
+    this group's half spectra.  Windows assemble from consecutive half
+    spectra (shift theorem, ``signs`` = :func:`half_window_signs`) and
+    ``acc[j] = sum_p W(j - p) * H[p]`` for the group's Pt supers.  A
+    host-known ``slot0`` (``step % Pt``) makes the queue read a static
+    roll; otherwise it is a traced-index gather.  -> ``[2, Pt, C, F]``.
+    """
+    Pt, C = queue.shape[1], queue.shape[2]
+    if slot0 is not None:
+        tpast = _roll_slots(queue, slot0)
+    else:
+        tpast = queue[:, jnp.mod(step + jnp.arange(Pt), Pt)]
+    tseq = jnp.concatenate([tpast, xt], axis=1)          # [2, 2Pt, C, F]
+    w = _tail_windows_from_xt(tseq, signs)               # [2, 2Pt-1, C, F]
+    # out(j) = sum_p w[Pt-1+j-p] * H[p]; _head_mac's contract is
+    # acc[i] = sum_p ext[Pt+i-p], so prepend one never-referenced dummy
+    # slot to shift the window indexing by one
+    Xext = jnp.concatenate([jnp.zeros_like(w[:, :1]), w], axis=1)
+    tc = _choose_chunk(Pt, 7 if C >= 512 else Pt)
+    accs = []
+    for j0 in range(0, Pt, tc):
+        hist = jax.lax.slice_in_dim(Xext, j0, j0 + Pt + tc, axis=1)
+        accs.append(_head_mac(hist, H, tc))
+    return jnp.concatenate(accs, axis=1)
+
+
+def _delayed_add(y_head: jax.Array, pending: jax.Array,
+                 out_tail: jax.Array):
+    """Pending-schedule output assembly: super-step ``j`` of the group adds
+    the tail output of super-step ``j - 2`` (the 2-slot schedule slack).
+
+    ``y_head [C, Pt*B2]``, ``pending [2, C, B2]``, ``out_tail [Pt, C, B2]``
+    -> ``(y [C, Pt*B2], pending' [2, C, B2])``."""
+    C, T = y_head.shape
+    Pt = out_tail.shape[0]
+    delayed = jnp.concatenate([pending, out_tail], axis=0)
+    y = y_head + jnp.moveaxis(delayed[:Pt], 0, 1).reshape(C, T)
+    return y, delayed[Pt:Pt + 2]
+
+
 def _render_group(state: NonUniformState, xg, H_head, H_tail, block: int,
                   ratio: int, Pt: int, tail_slot0: int | None = None,
                   specs: Specs | None = None):
@@ -305,113 +337,49 @@ def _render_group(state: NonUniformState, xg, H_head, H_tail, block: int,
 
     Within a render the spectral delay lines are pure input history, so
     nothing forces the per-super-step cadence: the head evaluates in
-    chunks of many small blocks through :func:`_head_step` (fused Pallas
-    kernel where gated), and the TAIL MAC batches across super-steps —
-    ``acc[j] = sum_p Xwin[j-p] (x) H[p]`` over the [past | new] window
-    history, so H_tail is read once per chunk instead of once per
-    super-step (at config #5 that alone cut the MAC's HBM traffic ~5x).
+    chunks of many small blocks through :func:`_head_step`, and the TAIL
+    MAC batches across super-steps — ``acc[j] = sum_p Xwin[j-p] (x) H[p]``
+    over the [past | new] window history, so H_tail is read once per
+    chunk instead of once per super-step.
     The slot-encoded queue, ``prev`` spectra and ``pending`` alignment are
     reproduced exactly, so the result and final state are interchangeable
     with a chain of :func:`_super_step` calls.
     """
-    from ..utils.layouts import default_layout
-
     sh, st = specs if specs is not None else (None, None)
     C = xg.shape[0]
     B = block
     B2 = B * ratio
 
-    # ---- head: whole-group fused kernel when gated (time-gridded, H and
-    # carry VMEM-resident across the group); else chunked batched chain
+    # ---- head: chunked batched chain of small blocks
     n_small = Pt * ratio
-    from ..ops_pallas_hook import maybe_fused_head
-
-    # re-pin the kernel operands AT the call: the render-entry pins alone
-    # left XLA's layout solver free to relayout the carry between entry
-    # and the custom call (a measured 0.24 ms xcarry copy per pod group)
-    fused = maybe_fused_head(xg, default_layout(state.xcarry), state.prev,
-                             default_layout(H_head), B,
-                             mode=sh.fused_head if sh else None,
-                             layout=sh.layout if sh else None)
-    if fused is not None:
-        y_head, xcarry, prev = fused
-    else:
-        hc = _choose_chunk(
-            n_small, 16 if C >= 512 else (32 if C >= 128 else n_small)
-        )
-        xcarry, prev = state.xcarry, state.prev
-        y_heads = []
-        for c0 in range(0, n_small, hc):
-            xch = jax.lax.slice_in_dim(xg, c0 * B, (c0 + hc) * B, axis=-1)
-            yh, xcarry, prev = _head_step(xcarry, prev, H_head, xch, B, hc,
-                                          sh)
-            y_heads.append(yh)
-        y_head = jnp.concatenate(y_heads, axis=-1)       # [C, Pt*B2]
+    hc = _choose_chunk(
+        n_small, 16 if C >= 512 else (32 if C >= 128 else n_small)
+    )
+    xcarry, prev = state.xcarry, state.prev
+    y_heads = []
+    for c0 in range(0, n_small, hc):
+        xch = jax.lax.slice_in_dim(xg, c0 * B, (c0 + hc) * B, axis=-1)
+        yh, xcarry, prev = _head_step(xcarry, prev, H_head, xch, B, hc, sh)
+        y_heads.append(yh)
+    y_head = jnp.concatenate(y_heads, axis=-1)           # [C, Pt*B2]
 
     # ---- tail: one batched half transform + whole-group windowed MAC.
     # The queue's slots hold RAW half-window spectra (xt); windows
     # assemble inside the MAC from consecutive xt pairs, and the new
     # carry is THIS group's xt — for the group-aligned stream
     # (tail_slot0 == 0, every render) the carry is the rfft output
-    # UNTOUCHED: the 473 MB/group assembled-window writeback of the
-    # round-4 formulation is gone (STATUS.md r4 "Known residuals").
+    # untouched, with no assembled-window writeback.
     # Each group advances the step by exactly Pt, so step % Pt is
     # invariant across the group scan and a host-known tail_slot0 keeps
-    # every queue access a static roll / in-kernel static index.
-    from ..ops_pallas_hook import maybe_gather_supers
-
-    xsup = maybe_gather_supers(xg, Pt, mode=st.mac if st else None)
-    if xsup is None:  # XLA fallback: relayout + transpose copies
-        xsup = jnp.moveaxis(xg.reshape(C, Pt, B2), 1, 0)  # [Pt, C, B2]
+    # every queue access a static roll.
+    xsup = _gather_supers(xg, Pt)                        # [Pt, C, B2]
     xt = rfft_half_planes(xsup, 2 * B2, spec=st)         # [2, Pt, C, F2]
-    acc = None
-    if tail_slot0 is not None:
-        from ..ops_pallas_hook import maybe_xt_grouped_mac
-        from .fft import half_sign_section, half_sign_tail
-
-        acc = maybe_xt_grouped_mac(
-            default_layout(state.tail.queue), default_layout(xt),
-            default_layout(H_tail), tail_slot0,
-            sign_section=half_sign_section(2 * B2, spec=st),
-            sign_tail=half_sign_tail(2 * B2, spec=st),
-            mode=st.mac if st else None)
-    if acc is None:
-        s2 = jnp.asarray(half_window_signs(2 * B2, spec=st))
-        if tail_slot0 is not None:
-            tpast = _roll_slots(state.tail.queue, tail_slot0)
-        else:
-            idx = jnp.mod(state.tail.step + jnp.arange(Pt), Pt)
-            tpast = state.tail.queue[:, idx]
-        tseq = jnp.concatenate([tpast, xt], axis=1)      # [2, 2Pt, C, F2]
-        w = _tail_windows_from_xt(tseq, s2)              # [2, 2Pt-1, C, F2]
-        # out(j) = sum_p w[Pt-1+j-p] * H[p]; _head_mac's contract is
-        # acc[i] = sum_p ext[Pt+i-p], so prepend one never-referenced
-        # dummy slot to shift the window indexing by one
-        Xext = jnp.concatenate([jnp.zeros_like(w[:, :1]), w], axis=1)
-        tc = _choose_chunk(Pt, 7 if C >= 512 else Pt)
-        accs = []
-        for j0 in range(0, Pt, tc):
-            hist = jax.lax.slice_in_dim(Xext, j0, j0 + Pt + tc, axis=1)
-            accs.append(_head_mac(hist, H_tail, tc,
-                                  mac=st.mac if st else None))
-        acc = jnp.concatenate(accs, axis=1)              # [2, Pt, C, F2]
+    s2 = jnp.asarray(half_window_signs(2 * B2, spec=st))
+    acc = _tail_group_mac(state.tail.queue, state.tail.step, xt, H_tail,
+                          s2, tail_slot0)
     out_tail = irfft_tail_planes(acc, 2 * B2,
                                  spec=st).astype(xg.dtype)  # [Pt, C, B2]
-
-    # ---- pending re-alignment: super-step j adds the tail output of
-    # super-step j-2 (the 2-slot schedule slack)
-    y = None
-    if Pt >= 2:
-        from ..ops_pallas_hook import maybe_delayed_add
-
-        y = maybe_delayed_add(y_head, state.pending, out_tail,
-                              mode=st.mac if st else None)
-    if y is not None:
-        pending = jax.lax.slice_in_dim(out_tail, Pt - 2, Pt, axis=0)
-    else:  # XLA fallback: concat fusion + relayout copies + add
-        delayed = jnp.concatenate([state.pending, out_tail], axis=0)
-        y = y_head + jnp.moveaxis(delayed[:Pt], 0, 1).reshape(C, Pt * B2)
-        pending = delayed[Pt:Pt + 2]
+    y, pending = _delayed_add(y_head, state.pending, out_tail)
 
     # ---- queue carry: the new queue IS this group's xt, slot-encoded.
     # Group-aligned streams (tail_slot0 == 0 — every whole-signal render)
@@ -442,37 +410,18 @@ def _render_impl(state: NonUniformState, H_head, H_tail, x, block: int,
     valid inside the group scan because every group advances the step by
     exactly ``Pt``.
     """
-    from ..utils.layouts import default_layout
-
     C, T = x.shape
     B2 = state.pending.shape[-1]
     nsuper = T // B2
     Pt = state.tail.queue.shape[1]
 
-    # pin the big carries + IR spectra to row-major: the Pallas MACs
-    # constrain their operands to it, and without the pin jax-0.9 auto
-    # layouts relaid the full queue (~940 MB at pod scale) 3x per render
-    state = state._replace(
-        xcarry=default_layout(state.xcarry),
-        tail=state.tail._replace(queue=default_layout(state.tail.queue)),
-    )
-    H_head = default_layout(H_head)
-    H_tail = default_layout(H_tail)
-
     if nsuper % Pt == 0:
         ratio = B2 // block
         if nsuper == Pt:
-            # single group: call the body directly — a length-1 lax.scan
-            # still costs while-loop carry copies (measured ~4.6 ms of
-            # queue/H relayouts per render at the pod config)
-            state, y = _render_group(state, x, H_head, H_tail, block,
-                                     ratio, Pt, tail_slot0, specs)
-            state = state._replace(
-                xcarry=default_layout(state.xcarry),
-                tail=state.tail._replace(
-                    queue=default_layout(state.tail.queue)),
-            )
-            return state, y
+            # single group: call the body directly (a length-1 lax.scan
+            # still pays while-loop carry copies)
+            return _render_group(state, x, H_head, H_tail, block, ratio, Pt,
+                                 tail_slot0, specs)
         groups = jnp.moveaxis(
             x.reshape(C, nsuper // Pt, Pt * B2), 1, 0
         )
@@ -482,10 +431,6 @@ def _render_impl(state: NonUniformState, H_head, H_tail, x, block: int,
                                  tail_slot0, specs)
 
         state, ys = jax.lax.scan(gbody, state, groups)
-        state = state._replace(
-            xcarry=default_layout(state.xcarry),
-            tail=state.tail._replace(queue=default_layout(state.tail.queue)),
-        )
         return state, jnp.moveaxis(ys, 0, 1).reshape(C, T)
 
     blocks = jnp.moveaxis(x.reshape(C, nsuper, B2), 1, 0)
@@ -494,10 +439,6 @@ def _render_impl(state: NonUniformState, H_head, H_tail, x, block: int,
         return _super_step(st, H_head, H_tail, xb, block, specs)
 
     state, ys = jax.lax.scan(body, state, blocks)
-    state = state._replace(
-        xcarry=default_layout(state.xcarry),
-        tail=state.tail._replace(queue=default_layout(state.tail.queue)),
-    )
     return state, jnp.moveaxis(ys, 0, 1).reshape(C, T)
 
 
@@ -509,138 +450,6 @@ def nonuniform_render(state: NonUniformState, H_head, H_tail, x, block: int,
     return _render_impl(state, H_head, H_tail, x, block, tail_slot0, specs)
 
 
-_PINNED: dict = {}
-
-
-def nonuniform_render_pinned(state: NonUniformState, H_head, H_tail, x,
-                             block: int, tail_slot0: int | None = None,
-                             specs: Specs | None = None):
-    """:func:`nonuniform_render` with the jit ENTRY/EXIT device layouts
-    pinned to row-major.
-
-    jax-0.9 auto layouts let XLA propagate a DUS-preferred twisted layout
-    to the donated state and the IR-spectra parameters, while the Pallas
-    MAC kernels constrain their operands to row-major — each dispatch then
-    relays the full queue + H (~940 MB each at the pod config) at the
-    boundary.  Pinning removed 3 full-queue copies/render: 21.4x -> 23.3x
-    RT at config #5.  Falls back to the plain jit off-TPU or when the
-    arrays are sharded (pinning is per-device)."""
-    from ..utils import layouts as _layouts
-
-    if _layouts.row_major_commit_broken:
-        # the backend refused a row-major commit earlier in this process
-        # — the pinned program can never be satisfied, so skip straight
-        # to the auto-layout render (uncommitted operands execute
-        # correctly; see utils/layouts.py)
-        return nonuniform_render(state, H_head, H_tail, x, block,
-                                 tail_slot0=tail_slot0, specs=specs)
-    args = (state, H_head, H_tail, x)
-    # Build (or fetch) the pinned callable under a fallback guard, but run
-    # it OUTSIDE it: the call donates ``state``, so falling back after a
-    # failed call would hand already-deleted buffers to the plain jit and
-    # mask the real error behind "Array has been deleted".
-    try:
-        devs = x.devices()
-        if jax.default_backend() != "tpu" or len(devs) != 1:
-            raise ValueError
-        dev = next(iter(devs))
-        key = (
-            jax.tree.structure(args),
-            tuple((a.shape, str(a.dtype)) for a in jax.tree.leaves(args)),
-            block, tail_slot0, specs, dev.id,
-        )
-        fn = _PINNED.get(key)
-        if fn is None:
-            from jax.experimental.layout import Format, Layout
-            from jax.sharding import SingleDeviceSharding
-
-            def fmt(a):
-                # pin ONLY the leaves the backend will actually commit
-                # row-major: the 4-D spectra stacks (queue/xcarry/H — the
-                # operands the Pallas kernels constrain, hundreds of MB)
-                # and the 2-D signals.  3-D planes ([2, C, F] prev /
-                # pending) stay on auto layout: the device_put path
-                # REFUSES row-major for them on this backend (observed
-                # 2026-08-20: [2,1024,513] commits as (2,0,1) tiled
-                # regardless of the requested layout), so a full pin can
-                # never be satisfied and every call degraded to the
-                # unpinned fallback — whose full-queue relayout
-                # transients then OOM'd under co-tenant HBM pressure.
-                if a.ndim in (2, 4):
-                    return Format(Layout(tuple(range(a.ndim))),
-                                  SingleDeviceSharding(dev))
-                return SingleDeviceSharding(dev)  # layout: compiler's pick
-
-            fn = jax.jit(
-                partial(_render_impl, block=block, tail_slot0=tail_slot0,
-                        specs=specs),
-                donate_argnums=(0,),
-                in_shardings=jax.tree.map(fmt, args),
-                out_shardings=jax.tree.map(fmt, (state, x)),
-            )
-            _PINNED[key] = fn
-    except ValueError:  # off-TPU / sharded: pinning does not apply
-        return nonuniform_render(state, H_head, H_tail, x, block,
-                                 tail_slot0=tail_slot0, specs=specs)
-    except Exception as e:  # pragma: no cover - fallback keeps semantics
-        # UNEXPECTED failure building the pinned program.  Warn instead of
-        # silently degrading: a bad tree-util call hid here for a whole
-        # round, costing 3 full-queue relayout copies per render (~8% RT
-        # at config #5) while every measurement quietly used the fallback.
-        import warnings
-
-        warnings.warn(
-            "layout-pinned render unavailable (%s: %s); falling back to "
-            "auto layouts — expect full-state relayout copies per render"
-            % (type(e).__name__, e), RuntimeWarning, stacklevel=2)
-        return nonuniform_render(state, H_head, H_tail, x, block,
-                                 tail_slot0=tail_slot0, specs=specs)
-    from ..utils.layouts import committed_off_row_major, device_put_row_major
-
-    # an operand sitting on device in a non-row-major layout can make the
-    # row-major-pinned jit refuse the call — for COMMITTED arrays always,
-    # and (measured, warm-process-dependent) sometimes for uncommitted
-    # ones too.  Detect it from the arrays' own layout metadata and
-    # re-commit once — outputs are pinned, so subsequent calls stay
-    # aligned.  Only the PINNED leaves (2-D/4-D — see fmt above) matter:
-    # 3-D planes ride auto layouts, and re-committing them is at best a
-    # wasted copy (the backend refuses row-major for them anyway).
-    def _recommit(tree):
-        return jax.tree.map(
-            lambda a: device_put_row_major(a) if a.ndim in (2, 4) else a,
-            tree)
-
-    if committed_off_row_major(
-            [l for l in jax.tree.leaves((state, H_head, H_tail, x))
-             if l.ndim in (2, 4)]):
-        state, H_head, H_tail, x = _recommit((state, H_head, H_tail, x))
-    try:
-        return fn(state, H_head, H_tail, x)
-    except ValueError as e:
-        # belt-and-braces for layout-metadata APIs that hide the mismatch
-        # (the precheck raises BEFORE launch, so the donated buffers are
-        # still alive for the retry)
-        if "Layout passed to jit" not in str(e):
-            raise
-        state, H_head, H_tail, x = _recommit((state, H_head, H_tail, x))
-        try:
-            return fn(state, H_head, H_tail, x)
-        except ValueError as e2:
-            # re-commit demonstrably didn't take (device_put fell back, or
-            # a layout API mismatch) — run unpinned rather than fail: same
-            # math, auto layouts, relayout copies instead of an error.
-            if "Layout passed to jit" not in str(e2):
-                raise
-            import warnings
-
-            warnings.warn(
-                "row-major re-commit did not satisfy the pinned render's "
-                "entry layouts; falling back to the unpinned render for "
-                "this call", RuntimeWarning, stacklevel=2)
-            return nonuniform_render(state, H_head, H_tail, x, block,
-                                     tail_slot0=tail_slot0, specs=specs)
-
-
 @partial(jax.jit, static_argnames=("block", "tail_slot0", "specs"),
          donate_argnums=(0,))
 def nonuniform_render_looped(state: NonUniformState, H_head, H_tail, xs,
@@ -650,13 +459,11 @@ def nonuniform_render_looped(state: NonUniformState, H_head, H_tail, xs,
     """Render a STACK of signals ``xs [R, C, T]`` back-to-back in ONE device
     program (state chained; only per-render output tails returned).
 
-    Exists for honest throughput measurement through a high-latency
-    dispatch path: one dispatch covers ``R`` renders, so timing slopes over
-    ``R`` measure pure device time.  The renders must be over DISTINCT
-    signals — scanning the same ``x`` repeatedly lets XLA hoist every
-    input-dependent stage (the forward DFTs of the whole signal) out of
-    the loop and the "throughput" stops corresponding to streaming work
-    (measured 7x inflation at the flagship config)."""
+    One dispatch covers ``R`` renders, so a timing over it holds no
+    per-call host overhead.  The renders must be over DISTINCT signals —
+    scanning the same ``x`` repeatedly lets XLA hoist every input-dependent
+    stage (the forward transforms of the whole signal) out of the loop, and
+    the "throughput" then stops corresponding to streaming work."""
 
     def body(st, x):
         st, y = _render_impl(st, H_head, H_tail, x, block, tail_slot0,
@@ -688,9 +495,9 @@ class NonUniformConvolver:
         self.super_block = self.block * self.ratio
         self.nchannels = nchannels
         # FREEZE both levels' spectral configurations at construction
-        # (env toggles read once; each resolution probes that its layout
-        # builds on this backend, falling back to std with a warning —
-        # see fft.resolve_spectral_spec).  ``spectral`` overrides with an
+        # (env toggles read once; a permuted-layout resolution probes that
+        # its program builds, falling back to std with a warning — see
+        # fft.resolve_spectral_spec).  ``spectral`` overrides with an
         # explicit (head, tail) SpectralSpec pair.
         if spectral is not None:
             self.spec_head, self.spec_tail = spectral
@@ -786,7 +593,7 @@ class NonUniformConvolver:
             self._tail_steps % self.tail_parts
             if nsuper % self.tail_parts == 0 else None
         )
-        self.state, y = nonuniform_render_pinned(
+        self.state, y = nonuniform_render(
             self.state, self.H_head, self.H_tail, jnp.asarray(x), self.block,
             tail_slot0=slot0, specs=self.specs,
         )

@@ -1,9 +1,9 @@
 """L3 — DSP filters: RBJ biquads, cascades/banks, all-pass, fractional delay.
 
-TPU-native reimagining of the reference's filter layer (ref: src/BiQuad.*,
+Batched-array reimagining of the reference's filter layer (ref: src/BiQuad.*,
 src/AllPassFilter.h, src/FractionalSample.*): per-sample recurrences become
 associative scans, channel loops become batched axes, SSE intrinsics become
-VPU-vectorised XLA ops (SURVEY.md §7).
+vectorised XLA ops (SURVEY.md §7).
 """
 
 from .biquad import (

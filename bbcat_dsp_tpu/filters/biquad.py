@@ -1,7 +1,7 @@
 """Biquad coefficient design (host-side, float64) + batched response curves.
 
 Coefficient design is control-plane work: it happens at parameter-change
-rate (Hz), not sample rate, so the TPU-native design computes it on the host
+rate (Hz), not sample rate, so the design computes it on the host
 in float64 — exactly the golden model's math (ref: src/BiQuad.cpp:181-325) —
 and ships the resulting ``[b0, b1, b2, a1, a2]`` arrays to the device.
 

@@ -1,10 +1,10 @@
 """Fractional-sample (polyphase windowed-sinc) delay reads on device.
 
-TPU formulation of the reference's 14-tap / 128-phase polyphase read
+Batched formulation of the reference's 14-tap / 128-phase polyphase read
 (ref: src/FractionalSample.cpp:255-341): instead of a scalar 14-MAC loop per
 output sample, all requested positions are resolved at once — a batched
 gather of the 14 source samples per position plus a ``[N, 14] x [14]``
-weighted reduction on the VPU.
+weighted reduction.
 
 Index contract (exact parity, ref: src/FractionalSample.cpp:283-291):
 
@@ -59,7 +59,7 @@ def additional_delay_required() -> int:
 def fractional_read(buf: jax.Array, pos: jax.Array) -> jax.Array:
     """Read fractional positions from a circular buffer.
 
-    ``buf`` is ``[..., length]`` (channel-major, the TPU-native layout);
+    ``buf`` is ``[..., length]`` (channel-major);
     ``pos`` is ``[..., n]`` float positions (broadcast against the leading
     dims of ``buf``).  Returns ``[..., n]`` samples in ``buf.dtype``.
     """
@@ -94,8 +94,7 @@ def fractional_read_stream(buf: jax.Array, start_pos: jax.Array, n: int | None =
 
     Because consecutive positions share one polyphase phase per channel,
     this is a fixed-phase 14-tap FIR: one per-channel dynamic slice of
-    ``out_len + 14`` samples plus 14 shifted multiply-adds — NO gathers
-    (TPU gathers cost ~2 orders of magnitude more than slices here).
+    ``out_len + 14`` samples plus 14 shifted multiply-adds — NO gathers.
     Identical results to :func:`fractional_read` at integer-spaced position
     sequences.
     """

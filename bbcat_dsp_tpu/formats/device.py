@@ -6,7 +6,7 @@ representations (MSB-aligned int32, float32) as pure jittable ops over
 — they are unpacked at the host edge (:mod:`bbcat_dsp_tpu.formats.host`).
 
 Numeric contract matches the reference (ref: src/genconversions.php:137,
-262-264) except that the float->int clamp runs in float32 on TPU (the
+262-264) except that the float->int clamp runs in float32 on device (the
 reference uses double); the int16/int24 truncation semantics are exact since
 they are integer ops.  Use the host path when bit-exact double rounding of
 full-scale int32 values matters.

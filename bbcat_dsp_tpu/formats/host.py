@@ -1,6 +1,6 @@
 """Host-side (CPU) byte-level sample format conversion.
 
-TPU-native replacement for the reference's generated 94-function conversion
+Host-side replacement for the reference's generated 94-function conversion
 matrix (ref: src/SoundFormatRawConversions.cpp, generated by
 src/genconversions.php).  Instead of 94 scalar loops selected through a 4-D
 function-pointer table, this module implements ONE vectorised numpy path per

@@ -7,7 +7,7 @@ used by the test suite as the oracle for the >=90 dB SNR equivalence bound and
 by `bench.py` as the accuracy reference.
 
 These are NOT the production path — they are deliberately scalar/NumPy and
-slow.  The TPU implementations live in the sibling packages and are validated
+slow.  The device implementations live in the sibling packages and are validated
 against these.
 """
 

@@ -147,7 +147,7 @@ def biquad_process_interpolated(
     (``Sample_t y = (Sample_t)(x*num0 + w[0]); w[0] = ... - y*den1 ...``,
     ref: src/BiQuad.h:200-206) — for near-unit-circle poles that cast is a
     ~95 dB self-noise floor in the reference's own output.  Default False
-    keeps the ideal double recurrence (what the TPU engines target).
+    keeps the ideal double recurrence (what the device engines target).
     """
     x = np.asarray(x, np.float64)
     cur = np.asarray(current, np.float64).copy()

@@ -4,7 +4,7 @@ with click-free IR crossfade.
 The BlockConvolver/Convolver sources are documented-but-absent in the
 reference snapshot (ref: README:38-44; SURVEY.md §0/§2.2); behavior here is
 the canonical uniformly-partitioned overlap-save algorithm (SURVEY.md §3.7),
-in float64, serving as the oracle for the TPU implementation.
+in float64, serving as the oracle for the device implementation.
 
 Crossfade contract (this framework's definition of the reference's
 "fade out old filter + fade in new filter over one block",

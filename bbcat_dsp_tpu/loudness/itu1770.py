@@ -1,8 +1,8 @@
-"""ITU-R BS.1770-4 multichannel loudness on TPU.
+"""ITU-R BS.1770-4 multichannel loudness on device.
 
 Reference capability: ITU1770MultiChannelLoudness (documented-absent,
 ref: README:65-66; required by BASELINE.json config #4 — 128-channel
-streams).  TPU-native design:
+streams).  Device design:
 
 * K-weighting = the two standard biquads run through the high-precision
   modal IIR engine (:mod:`bbcat_dsp_tpu.filters.iir`), batched over

@@ -6,7 +6,7 @@ Kaiser-windowed sinc designed to the Annex 2 attenuation template; the
 standard's conformance tolerance for true-peak is ±0.4 dB, which this
 design meets with margin.
 
-TPU formulation: the 4 polyphase branches are 4 small correlations executed
+Device formulation: the 4 polyphase branches are 4 small correlations executed
 as one batched matmul-free conv via stacked shifts (taps are only 12 long).
 """
 

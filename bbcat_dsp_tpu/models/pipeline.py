@@ -3,7 +3,7 @@
 * :class:`EQDelayPipeline` — config #2: 8-stage biquad EQ over 8-channel
   48 kHz audio + per-channel fractional delay.
 * :class:`MixdownPipeline` — config #4: 128-channel stream -> format
-  conversion, gain-matrix mixdown (MXU), BS.1770 loudness on the mix.
+  conversion, gain-matrix mixdown (matmul), BS.1770 loudness on the mix.
 """
 
 from __future__ import annotations
@@ -88,15 +88,19 @@ class EQDelayPipeline:
             new_eq = tuple(new_eq)
         ring = ring_write(state.ring, y)
         B = x.shape[-1]
+        # ring offset of this block's first sample, reduced modulo the
+        # ring in int32 BEFORE meeting the float delays: the write counter
+        # grows without bound, and in float32 a large counter would round
+        # away the delay's fractional part (the polyphase phase)
+        wp0 = jnp.mod(ring.writepos - B, self.length)
         if per_sample:
             # per-sample delay modulation (doppler): general gather read
-            wp = ring.writepos - B + jnp.arange(B)
+            wp = wp0 + jnp.arange(B)
             pos = (wp[None, :] - delays + self.length) % self.length
             out = fractional_read(ring.data, pos)
         else:
             # constant per-channel delay: gather-free fixed-phase FIR
-            start = (ring.writepos - B - delays[:, 0]
-                     + 2 * self.length) % self.length
+            start = (wp0 - delays[:, 0] + 2 * self.length) % self.length
             out = fractional_read_stream(ring.data, start, B)
         return EQDelayState(eq=new_eq, ring=ring), out
 
@@ -115,8 +119,8 @@ class MixdownPipeline:
     """Format conversion + gain-matrix mixdown + loudness (config #4).
 
     Input: ``[C_in, B]`` samples in any normalized sample format (int32
-    MSB-aligned or float); gains ``[C_out, C_in]`` mix to the output bus on
-    the MXU; BS.1770 loudness runs on the mix.
+    MSB-aligned or float); gains ``[C_out, C_in]`` mix to the output bus as
+    one matmul; BS.1770 loudness runs on the mix.
     """
 
     def __init__(self, gains, fs: float = 48000.0,

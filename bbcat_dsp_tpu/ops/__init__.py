@@ -11,7 +11,6 @@ from .interpolator import (
 )
 from .mixing import mix_samples, mix_samples_ramped
 from .conv2d import convolve2d
-from . import pallas
 
 __all__ = [
     "ComplexInterpolator",
@@ -23,5 +22,4 @@ __all__ = [
     "mix_samples",
     "mix_samples_ramped",
     "convolve2d",
-    "pallas",
 ]

@@ -1,8 +1,8 @@
 """2-D convolution (ref: README:30, 2DConvolution.h — documented-absent
 template; built from spec as a thin XLA conv wrapper).
 
-On TPU, ``lax.conv_general_dilated`` lowers 2-D convolution straight onto
-the MXU — the idiomatic replacement for a C++ loop template.
+``lax.conv_general_dilated`` lowers 2-D convolution to the device's
+convolution library — the idiomatic replacement for a C++ loop template.
 """
 
 from __future__ import annotations

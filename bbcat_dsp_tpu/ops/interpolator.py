@@ -3,7 +3,7 @@
 Functional equivalents of the reference's ``Interpolator`` /
 ``ComplexInterpolator`` (ref: src/Interpolator.h:12-143): tiny state
 pytrees whose per-sample ramps are materialised as vectors and fused into
-whatever op consumes them (mixing, filtering) — the TPU way to "interpolate
+whatever op consumes them (mixing, filtering) — the array-program way to "interpolate
 every sample" without a per-sample loop.
 """
 

@@ -1,6 +1,6 @@
 """Device-mesh sharding layer (new component — no reference counterpart;
-SURVEY.md §2.3): channel/time sharding of the DSP engines over a TPU pod
-slice, halo exchange for overlap-save, psum reductions for metering."""
+SURVEY.md §2.3): channel/time sharding of the DSP engines over a device
+mesh, halo exchange for overlap-save, psum reductions for metering."""
 
 from .mesh import make_mesh, channel_sharding, shard_channels
 from .convolve import (

@@ -1,7 +1,7 @@
 """Sharded partitioned convolution: channel-parallel and time-parallel.
 
-TPU-native replacement for the reference Convolver's thread-per-channel
-parallelism (ref: README:43-44) at pod scale (BASELINE.json config #5):
+Device-mesh replacement for the reference Convolver's thread-per-channel
+parallelism (ref: README:43-44) at multi-card scale (BASELINE.json config #5):
 
 * **Channel sharding** — each device owns a contiguous channel slice of the
   queue / IR spectra / signal and runs the identical convolver step with
@@ -115,14 +115,13 @@ def channel_sharded_nonuniform_render(mesh: Mesh, block: int,
 
     Every state leaf, both IR spectra stacks and the signal shard their
     channel axis; each device runs the identical
-    :func:`bbcat_dsp_tpu.convolve.nonuniform._render_impl` (Pallas group
-    kernels engage per shard where their gates allow).  Returns a jitted
+    :func:`bbcat_dsp_tpu.convolve.nonuniform._render_impl`.  Returns a jitted
     ``(state, H_head, H_tail, x) -> (state, y)``.
 
     ``specs`` is the engine's frozen (head, tail) SpectralSpec pair
     (``NonUniformConvolver.specs``) — REQUIRED whenever the engine resolved
-    a non-default configuration (e.g. the TPU pod default: dftmm backend,
-    permuted tail layout, Pallas kernels), so the sharded program agrees
+    a non-default configuration (e.g. the dftmm backend with a permuted
+    tail layout), so the sharded program agrees
     with the engine's state/IR layout.
     """
     from ..convolve.nonuniform import NonUniformState, _render_impl
@@ -160,7 +159,7 @@ def time_sharded_nonuniform_render(mesh: Mesh, block: int, ratio: int,
                                    ch_axis: str | None = None,
                                    specs: tuple | None = None):
     """Time(+channel)-sharded offline render for the NON-UNIFORM two-level
-    engine (VERDICT r4 next #7) — the low-channel-count long-render use
+    engine — the low-channel-count long-render use
     case the channel-sharded path cannot serve.
 
     Each device owns a contiguous span of ``T / n_t`` samples (a multiple
@@ -237,7 +236,7 @@ def time_sharded_nonuniform_render(mesh: Mesh, block: int, ratio: int,
         # windows wanted are w[Pt - 1 + i - p], so prepend one (never
         # referenced) dummy slot to shift the indexing by one.
         ext = jnp.concatenate([jnp.zeros_like(w[:, :1]), w], axis=1)
-        acc = _head_mac(ext, H_tail, 2, mac=st.mac if st else None)
+        acc = _head_mac(ext, H_tail, 2)
         pending = irfft_tail_planes(acc, 2 * B2,
                                     spec=st).astype(x.dtype)  # [2, C, B2]
 

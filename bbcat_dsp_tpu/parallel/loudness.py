@@ -2,7 +2,7 @@
 
 Per-channel K-weighting and mean-squares are embarrassingly parallel over a
 channel-sharded mesh; the weighted channel sum z_j = sum_c G_c ms_cj is the
-single collective (``psum`` over the channel axis, riding ICI) — the
+single collective (``psum`` over the channel axis, riding NVLink between cards) — the
 pattern SURVEY.md §5 calls out for the distributed build.
 """
 

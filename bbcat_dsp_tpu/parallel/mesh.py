@@ -11,7 +11,7 @@ from a ``jax.sharding.Mesh`` with
   rendering, with overlap-save halos exchanged between neighbours
   (:mod:`bbcat_dsp_tpu.parallel.convolve`).
 
-Collectives ride ICI within a slice / DCN across hosts; XLA inserts them
+Collectives ride NVLink within a host / DCN across hosts; XLA inserts them
 from the shardings (psum for loudness/mix reductions, ppermute for halos).
 """
 

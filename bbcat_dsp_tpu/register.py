@@ -1,6 +1,6 @@
 """Library registration / version observability.
 
-TPU-native equivalent of the reference's L4 lifecycle layer
+Batched-array equivalent of the reference's L4 lifecycle layer
 (ref: src/register.cpp:10-28, src/register.h:8): an idempotent ``register()``
 that records this library's version in a process-wide registry, chaining to
 dependency registration (here: jax/numpy versions).  The reference used a

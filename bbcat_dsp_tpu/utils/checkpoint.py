@@ -12,7 +12,7 @@ BinauralState, ... and arbitrary nests of them.
 
 Spectral-layout portability: convolver spectral queues are stored in the
 half-window engine's SPECTRAL LAYOUT of the backend that wrote them
-(``convolve.fft.half_engine_layout`` — permuted on TPU for large block
+(``convolve.fft.half_engine_layout`` — permuted for large dftmm block
 sizes, standard elsewhere), and the two layouts have different bin counts
 (e.g. 4104 vs 4097 at an 8192-point tail).  ``save_state`` therefore tags
 checkpoints with the writer's layout metadata, and ``load_state(like=...)``

@@ -1,8 +1,8 @@
-"""Double-word float32 arithmetic (error-free transforms) for the TPU VPU.
+"""Double-word float32 arithmetic (error-free transforms).
 
-The TPU has no float64 ALU, but some recurrences need more than float32:
-the reference interpolates biquad coefficients per sample and runs the
-DF2T tick with DOUBLE coefficients and DOUBLE state
+Float64 is slow or absent on accelerators, but some recurrences need more
+than float32: the reference interpolates biquad coefficients per sample
+and runs the DF2T tick with DOUBLE coefficients and DOUBLE state
 (ref: src/BiQuad.cpp:379-395, 473-494; src/BiQuad.h:200-240), so a
 float32-only parallel scan can be 50+ dB short for low-frequency /
 high-Q filters whose poles sit within ~1e-4 of the unit circle — the
@@ -18,12 +18,13 @@ classical error-free building blocks:
 * ``two_prod``  — Dekker/Veltkamp exact product (no FMA required)
 * ``dw_add`` / ``dw_mul`` — normalized double-word ops
 
-All operations are pure element-wise jnp arithmetic: they vectorize on
-the VPU lanes, survive ``jit`` (XLA does not reassociate float ops, and
+All operations are pure element-wise jnp arithmetic: they vectorize,
+survive ``jit`` (XLA does not reassociate float ops, and
 mul+add contraction into FMA only *tightens* the ``two_prod`` error
-term), and work identically on CPU.  Measured on TPU v5e: the
-double-word companion scan tracks a float64 reference at 148 dB SNR
-where plain float32 reaches 60-85 dB (see docs/PERFORMANCE.md).
+term), and work identically on CPU and GPU (``chip_smoke.py`` checks the
+transforms exact under jit on the card).  The double-word companion scan
+tracks a float64 reference at ~148 dB SNR where plain float32 reaches
+60-85 dB (``tests/test_dwfloat.py``).
 
 References: T. J. Dekker, "A floating-point technique for extending the
 available precision" (1971); Hida, Li & Bailey, "Algorithms for

@@ -1,7 +1,7 @@
 """Tracing / profiling helpers.
 
 The reference's only observability is compile-time ``BBCDEBUG*`` printf
-macros (SURVEY.md §5).  The TPU-native equivalent is structured: every
+macros (SURVEY.md §5).  The equivalent here is structured: every
 public kernel can be wrapped in a named trace scope that shows up in
 ``jax.profiler`` / XProf timelines, and a context manager captures a whole
 trace to disk for offline inspection.

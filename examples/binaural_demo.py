@@ -6,6 +6,7 @@ through a SOFA HRTF set, meter it, and write a WAV.
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -25,7 +26,8 @@ from bbcat_dsp_tpu.formats.sample_format import SampleFormat
 from bbcat_dsp_tpu.tools import write_wav
 
 
-def synth_hrtf(tmp="/tmp/demo_hrtf.sofa", fs=48000.0):
+def synth_hrtf(tmp=os.path.join(tempfile.gettempdir(), "demo_hrtf.sofa"),
+               fs=48000.0):
     """A toy HRTF set: direction-dependent delay + shadowing."""
     rng = np.random.default_rng(0)
     M, N = 12, 256
@@ -43,7 +45,8 @@ def synth_hrtf(tmp="/tmp/demo_hrtf.sofa", fs=48000.0):
 
 
 def main():
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/binaural_demo.wav"
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        tempfile.gettempdir(), "binaural_demo.wav")
     fs = 48000.0
     sofa = SOFAFile.open(synth_hrtf())
     dirs = [(0.0, 0.0), (90.0, 0.0), (270.0, 0.0)]

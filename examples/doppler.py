@@ -16,6 +16,7 @@ are the same operation, which is why both sit on the same polyphase core.
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,7 +53,7 @@ def peak_freq(y: np.ndarray, fs: float) -> float:
     return k * fs / y.size
 
 
-def main(out_path="/tmp/doppler.wav"):
+def main(out_path=os.path.join(tempfile.gettempdir(), "doppler.wav")):
     nblocks = int(SECONDS * FS) // BLOCK
     T = nblocks * BLOCK
     t = np.arange(T) / FS

@@ -1,17 +1,17 @@
-"""Pod-deployment walkthrough, runnable without a pod.
+"""Multi-device walkthrough, runnable without the devices.
 
-Simulates an 8-chip slice with virtual CPU devices and drives the REAL
-pod path end-to-end — the same `shard_map` programs a multi-host
-deployment runs (docs/DEPLOYMENT.md "Multi-host pod slice"), at a scaled
--down geometry:
+Simulates 8 devices with virtual CPU devices and drives the REAL
+channel-sharded path end-to-end — the same `shard_map` programs a
+multi-card deployment runs (docs/DEPLOYMENT.md "Several cards"), at a
+scaled-down geometry:
 
 1. channel-sharded two-level convolver render (BASELINE config #5's
-   engine) with the frozen perm-layout + forced-kernel spec,
+   engine),
 2. sharded BS.1770 integrated loudness (one psum over the mesh),
-3. the communication model's byte accounting + scaling projection.
+3. the communication model's byte accounting.
 
-Self-checking: sharded output must be BIT-EXACT against the same engine
-run on one device, and the loudness psum must match the unsharded meter.
+Self-checking: sharded output must match the same engine run on one
+device (>= 110 dB), and the loudness psum must match the unsharded meter.
 
     python examples/pod_render.py
 """
@@ -22,7 +22,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # 8 virtual devices BEFORE jax initialises (same trick tests/conftest.py
-# and dryrun_multichip use; a real pod would jax.distributed.initialize())
+# and dryrun_multichip use; several hosts would jax.distributed.initialize())
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -38,10 +38,7 @@ import jax.numpy as jnp
 
 def main():
     fs = 48000.0
-    C, B, ratio = 128, 128, 16        # scaled-down config-#5 shape;
-    # tail window 2*B*ratio = 4096 > 2048 -> the PERMUTED layout engages,
-    # and C/8 = 16 channels per device keeps the forced kernels engaged
-    # on the shards too (same arithmetic both sides -> bit-exact)
+    C, B, ratio = 128, 128, 16        # scaled-down config-#5 shape
     SB = B * ratio
 
     from bbcat_dsp_tpu.convolve import NonUniformConvolver
@@ -50,22 +47,15 @@ def main():
     from bbcat_dsp_tpu.parallel import (
         allreduce_bytes,
         channel_sharded_nonuniform_render,
-        config5_scaling_table,
         make_mesh,
         shard_channels,
         sharded_integrated_loudness,
     )
 
-    # the POD-DEFAULT spectral stack, frozen at construction: permuted
-    # layout where it applies + Pallas kernels (interpreted off-TPU)
-    # pin every kernel gate so the 16-channel shards and the 128-channel
-    # single-device run resolve the SAME program (auto floors are
-    # C-dependent; the fused head stays off below 64 ch)
-    sh = resolve_spectral_spec(2 * B, backend="dftmm",
-                               probe=False)._replace(mac="1",
-                                                     fused_head="0")
-    st = resolve_spectral_spec(2 * SB, backend="dftmm",
-                               probe=False)._replace(permfft="1", mac="1")
+    # the engine's spectral specs, frozen at construction and shared by
+    # the single-device and the sharded program
+    sh = resolve_spectral_spec(2 * B)
+    st = resolve_spectral_spec(2 * SB)
     rng = np.random.default_rng(0)
     irs = rng.standard_normal((C, 4 * SB)) * np.exp(
         -np.arange(4 * SB) / (SB / 2.0))
@@ -85,9 +75,9 @@ def main():
     _, y = render(conv2.state, conv2.H_head, conv2.H_tail,
                   shard_channels(x, mesh))
     y = np.asarray(y)
-    # per-shard channel count differs from the single-device batch, so
-    # kernel gates may resolve differently per side — the contract is the
-    # dryrun's: >= 110 dB (bit-exact when both sides pick the same path)
+    # the per-shard channel count differs from the single-device batch,
+    # so the two programs may round differently — the contract is the
+    # dryrun's: >= 110 dB
     err = np.sum((y_ref.astype(np.float64) - y.astype(np.float64)) ** 2)
     sig = np.sum(y_ref.astype(np.float64) ** 2)
     snr_db = float("inf") if err == 0 else 10 * np.log10(sig / err)
@@ -100,21 +90,16 @@ def main():
 
     # ---- what a real slice would communicate per render
     psum_bytes = allreduce_bytes(4, len(jax.devices()))
-    rows = config5_scaling_table(82.7, (1, 2, 4, 8))
 
     print(f"devices                 : {len(jax.devices())} "
-          f"(virtual CPU; swap for a pod with jax.distributed.initialize)")
+          f"(virtual CPU)")
     print(f"engine                  : NonUniform B={B} ratio={ratio}, "
-          f"tail layout={st.layout} radix={st.radix} kernels=forced")
+          f"transforms={st.backend}")
     print(f"sharded vs single       : {snr_db:.1f} dB SNR (contract >= 110)")
     print(f"loudness (sharded psum) : {lkfs:7.2f} LKFS "
           f"(unsharded {lkfs_ref:7.2f})")
     print(f"collective bytes/render : {psum_bytes} (loudness psum; "
           f"render itself is communication-free)")
-    print("scaling (from the measured 82.7x 1-chip artifact):")
-    for r in rows:
-        print(f"  {r['chips']:2d} chips: {r['aggregate_rtf']:7.1f}x RT "
-              f"at {100 * r['efficiency']:5.1f}% efficiency")
     assert snr_db >= 110.0, f"sharded render diverged: {snr_db:.1f} dB"
     assert abs(lkfs - lkfs_ref) < 1e-4, (lkfs, lkfs_ref)
 

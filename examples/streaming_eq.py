@@ -13,6 +13,7 @@ and reports integrated loudness before/after.
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -37,7 +38,7 @@ NBLOCKS = 94  # ~1 s
 CH = 2
 
 
-def main(out_path="/tmp/streaming_eq.wav"):
+def main(out_path=os.path.join(tempfile.gettempdir(), "streaming_eq.wav")):
     rng = np.random.default_rng(7)
     # program: pink-ish noise + a 120 Hz hum to give the HPF work to do
     t = np.arange(NBLOCKS * BLOCK) / FS

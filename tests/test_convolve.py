@@ -183,7 +183,7 @@ def test_nparts_padding(rng):
 
 
 def test_dftmm_backend_matches_xla(rng):
-    """The TPU matmul-DFT backend must match jnp.fft on CPU."""
+    """The matmul-DFT backend must match jnp.fft."""
     from bbcat_dsp_tpu.convolve import rfft_planes, irfft_planes
 
     x = rng.standard_normal((3, 1024)).astype(np.float32)

@@ -1,7 +1,7 @@
-"""Frozen engine configuration (VERDICT r3 weak #5 / punch item 6).
+"""Frozen engine configuration.
 
-Engines capture a :class:`SpectralSpec` — (backend, layout, radix, cmatmul,
-kernel gates) — at CONSTRUCTION.  These tests prove that changing the env
+Engines capture a :class:`SpectralSpec` — (backend, layout, radix, cmatmul)
+— at CONSTRUCTION.  These tests prove that changing the env
 toggles after an engine is built cannot change its traced program: the same
 engine renders identically before and after an env flip that *would* have
 changed the layout had it been read at trace time, and its state shapes
@@ -28,11 +28,8 @@ def test_resolve_reads_env_once(monkeypatch, rng):
     """resolve_spectral_spec honours the env at CALL time; the returned
     spec is immutable thereafter."""
     monkeypatch.setenv("BBCAT_DSP_CMATMUL", "karatsuba")
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_MAC", "0")
     s = resolve_spectral_spec(8192, backend="dftmm", probe=False)
     assert s.cmatmul == "karatsuba"
-    assert s.kernel_cmatmul == "karatsuba"  # falls back to CMATMUL when set
-    assert s.mac == "0"
     assert s.layout == "perm" and s.radix in (8, 16, 32)
     monkeypatch.setenv("BBCAT_DSP_PERM_LAYOUT", "0")
     s2 = resolve_spectral_spec(8192, backend="dftmm", probe=False)
@@ -55,8 +52,7 @@ def test_resolve_layout_override(monkeypatch):
     s = resolve_spectral_spec(8192, backend="dftmm", probe=False,
                               layout="perm")
     assert s.layout == "perm"
-    # round 5: explicit layout="perm" resolves a radix BELOW the direct
-    # size too (the head-radix experiment, docs/PERFORMANCE.md "Round 5")
+    # explicit layout="perm" resolves a radix BELOW the direct size too
     s = resolve_spectral_spec(1024, backend="dftmm", probe=False,
                               layout="perm")
     assert s.layout == "perm" and s.radix is not None
@@ -115,8 +111,6 @@ def test_env_flip_cannot_change_built_engine(engine, monkeypatch, rng):
     monkeypatch.setenv("BBCAT_DSP_PERM_LAYOUT", "0")
     monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "4")
     monkeypatch.setenv("BBCAT_DSP_CMATMUL", "karatsuba")
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_MAC", "1")
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "0")
 
     ya2 = np.asarray(twin_a.process(jnp.asarray(x2)))
 
@@ -130,8 +124,6 @@ def test_env_flip_cannot_change_built_engine(engine, monkeypatch, rng):
     monkeypatch.delenv("BBCAT_DSP_PERM_LAYOUT")
     monkeypatch.delenv("BBCAT_DSP_PERM_RADIX")
     monkeypatch.delenv("BBCAT_DSP_CMATMUL")
-    monkeypatch.delenv("BBCAT_DSP_PALLAS_MAC")
-    monkeypatch.delenv("BBCAT_DSP_PALLAS_PERMFFT")
 
     yb1 = np.asarray(twin_b.process(jnp.asarray(x1)))
     yb2 = np.asarray(twin_b.process(jnp.asarray(x2)))
@@ -140,72 +132,10 @@ def test_env_flip_cannot_change_built_engine(engine, monkeypatch, rng):
     np.testing.assert_array_equal(ya2, yb2)  # bit-identical despite the flip
 
 
-def test_frozen_kernel_gates_match_xla(monkeypatch, rng):
-    """A spec with kernels FORCED agrees with one with kernels OFF to the
-    kernels' accuracy class (in-kernel Karatsuba stage dots are HIGH-class,
-    ~1e-5 — measured ~102 dB system SNR here vs the classic XLA path's
-    ~130 dB) — and flipping the env afterwards changes neither program."""
-    B = 1536
-    C, N, T = 8, 2 * B, 2 * B
-    ir = rng.standard_normal((C, N)) * 0.1
-    x = rng.standard_normal((C, T)).astype(np.float32)
-
-    base = resolve_spectral_spec(2 * B, backend="dftmm", probe=False)
-    assert base.layout == "perm"
-    on = BlockConvolver(ir, block=B, spectral=base._replace(permfft="1"))
-    off = BlockConvolver(ir, block=B, spectral=base._replace(permfft="0"))
-    y_on = np.asarray(on.process(jnp.asarray(x)))
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")  # must be inert
-    y_off = np.asarray(off.process(jnp.asarray(x)))
-    assert snr_db(y_off, y_on) >= 95.0
-
-
 def test_spec_is_hashable_static_arg():
     s = resolve_spectral_spec(4096, backend="dftmm", probe=False)
     assert isinstance(hash(s), int)
     assert s == SpectralSpec(*s)  # plain tuple semantics
-
-
-def test_kernel_ceiling_boundary(monkeypatch, rng):
-    """VERDICT r3 #8: the perm-FFT kernel size ceiling is fenced LOUDLY.
-
-    At the boundary (n1 == MAX_KERNEL_N1) the kernels serve; one step past
-    it (an explicit radix pushing n1 to 2048) a forced-kernel resolution
-    warns, the hooks decline, and the XLA formulation still renders
-    correctly."""
-    import warnings
-
-    from bbcat_dsp_tpu import ops_pallas_hook as hook
-    from bbcat_dsp_tpu.ops.pallas.perm_fft import MAX_KERNEL_N1
-
-    # n = 32768: auto radix 32 -> n1 = 1024 == ceiling (kernels serve);
-    # forced radix 16 -> n1 = 2048 (kernels decline)
-    n = 32 * MAX_KERNEL_N1
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-
-    s_at = resolve_spectral_spec(n, backend="dftmm", probe=False)
-    assert s_at.layout == "perm" and n // s_at.radix == MAX_KERNEL_N1
-    x = rng.standard_normal((8, 1, n // 2)).astype(np.float32)
-    assert hook.maybe_perm_rfft_half(
-        jnp.asarray(x[:, 0]), n, spec=s_at) is not None
-
-    monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "16")
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        s_past = resolve_spectral_spec(n, backend="dftmm", probe=False)
-    assert s_past.radix == 16 and n // 16 == 2 * MAX_KERNEL_N1
-    assert any("MAX_KERNEL_N1" in str(w.message) for w in rec), (
-        "forced-kernel config past the ceiling resolved silently")
-    # hooks decline; the XLA formulation still produces the right spectra
-    assert hook.maybe_perm_rfft_half(
-        jnp.asarray(x[:, 0]), n, spec=s_past) is None
-    got = np.asarray(fft.rfft_half_planes(
-        jnp.asarray(x[:1, 0]), n, spec=s_past))
-    z = np.fft.rfft(np.concatenate(
-        [x[:1, 0].astype(np.float64),
-         np.zeros((1, n // 2))], axis=-1), axis=-1)
-    want = fft.permute_half_spectrum(z, n, radix=16)
-    assert snr_db(np.stack([want.real, want.imag]), got) > 110.0
 
 
 def test_probe_does_not_undo_explicit_perm_override(monkeypatch):
@@ -218,33 +148,3 @@ def test_probe_does_not_undo_explicit_perm_override(monkeypatch):
     s = resolve_spectral_spec(8192, backend="dftmm", probe=True,
                               layout="perm")
     assert s.layout == "perm" and s.radix is not None
-
-
-def test_kernel_gate_requires_tile_alignment():
-    """Code-review r4: an in-window but non-power-of-two n1 (e.g. 384 at
-    n=3072 radix 8) must not pass the kernel gate — its n1/2=192-lane
-    sections break the 128-lane tile alignment the flat layout exists
-    for."""
-    from bbcat_dsp_tpu.ops.pallas.perm_fft import kernel_serves_n1
-
-    assert kernel_serves_n1(256) and kernel_serves_n1(512)
-    assert kernel_serves_n1(1024)
-    assert not kernel_serves_n1(384)
-    assert not kernel_serves_n1(128)
-    assert not kernel_serves_n1(2048)
-
-
-def test_kernel_floor_fenced_loudly(monkeypatch):
-    """Code-review r4: a FORCED kernel config below MIN_KERNEL_N1 warns
-    instead of silently routing to XLA (the r3 fence only covered the MAX
-    side)."""
-    import warnings
-
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-    monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "64")
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        s = resolve_spectral_spec(8192, backend="dftmm", probe=False)
-    assert s.radix == 64 and 8192 // 64 == 128
-    assert any("MIN_KERNEL_N1" in str(w.message) for w in rec), (
-        "forced-kernel config below the floor resolved silently")

@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from bbcat_dsp_tpu import golden
 from bbcat_dsp_tpu.filters import FilterType, biquad_coeffs
@@ -156,3 +157,28 @@ def test_schroeder_reverb(rng):
     # channels decorrelated (different comb tunings)
     c = np.corrcoef(y[0, :w*5], y[1, :w*5])[0, 1]
     assert abs(c) < 0.5
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_eq_delay_pipeline_after_long_stream(rng, per_sample):
+    """Hours into a stream the ring's write counter is large; the
+    fractional read must not lose the delay's sub-sample phase to float32
+    rounding of that counter.  A pipeline whose counter starts at a large
+    multiple of the ring length holds the same ring layout as a fresh one,
+    so both must produce the same output."""
+    C, B = 2, 256
+    eq = np.stack([golden.biquad_coeffs(FilterType.PEQ, 500, FS, gain=3)])
+    fresh = EQDelayPipeline(eq, nchannels=C, block=B, max_delay=64.0, fs=FS)
+    late = EQDelayPipeline(eq, nchannels=C, block=B, max_delay=64.0, fs=FS)
+    ring = late.state.ring
+    late.state = late.state._replace(ring=ring._replace(
+        writepos=jnp.asarray((1 << 20) * late.length, jnp.int32)))
+    delays = np.array([20.97, 33.03])
+    if per_sample:
+        delays = delays[:, None] + np.linspace(0.0, 0.5, B)[None]
+    x = rng.standard_normal((C, 3 * B)).astype(np.float32)
+    for i in range(3):
+        xb = jnp.asarray(x[:, i * B:(i + 1) * B])
+        want = np.asarray(fresh.process_block(xb, delays))
+        got = np.asarray(late.process_block(xb, delays))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

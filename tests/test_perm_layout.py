@@ -1,9 +1,9 @@
 """Permuted-layout half-window engine (the transpose-free large-n path).
 
 For n > _MAX_DIRECT the dftmm backend stores half-window spectra in a
-radix-8 permuted bin order (bin k = 8*k1 + k2 at position k2*(n1/2+1)+k1)
-so both transforms become one batched MXU matmul plus fused elementwise
-stages — no HBM-materialised transposes.  The engines only use spectra
+radix-r permuted bin order (bin k = r*k1 + k2 at position k2*(n1/2)+k1,
+Nyquist tail last) so both transforms become one batched matmul plus
+elementwise stages — no materialised transposes.  The engines only use spectra
 elementwise, so results must match the standard layout exactly (up to
 summation-order rounding).
 """
@@ -14,15 +14,6 @@ import jax.numpy as jnp
 import pytest
 
 from bbcat_dsp_tpu.convolve import fft as F
-
-
-def high_atol() -> float:
-    """Tolerance for kernel-vs-XLA comparisons at Precision.HIGH: both
-    sides are the ~1.2e-5-operand-error 3-pass bf16 scheme, but the
-    kernel defaults to the Karatsuba 3-dot order (hardware A/B winner)
-    while XLA's _cmatmul defaults to classic, so allow the full HIGH
-    band rather than the near-identical 5e-6 of matching formulations."""
-    return 1.5e-5
 
 
 def snr_db(ref, got):
@@ -38,7 +29,7 @@ def test_perm_layout_resolution(monkeypatch):
     assert F.half_engine_layout(1024, "dftmm") == "std"
     assert F.half_engine_layout(8192, "dftmm") == "perm"
     assert F.half_engine_layout(8192, "xla") == "std"
-    # auto radix targets the 256..1024 inner-transform window (v5e A/B)
+    # auto radix targets the 256..1024 inner-transform window
     assert F._perm_radix(8192) == 32
     assert F._perm_radix(4096) == 16
     assert F._perm_radix(16384) == 32
@@ -48,10 +39,6 @@ def test_perm_layout_resolution(monkeypatch):
     assert F.half_engine_layout(65536, "dftmm") == "std"
     assert F.spectral_nbins(8192, "dftmm") == 32 * 129  # n1 = 256
     assert F.spectral_nbins(1024, "dftmm") == 513
-    assert F.half_sign_section(8192, "dftmm") == 128
-    assert F.half_sign_section(1024, "dftmm") == 1
-    assert F.half_sign_tail(8192, "dftmm") == 32 * 128
-    assert F.half_sign_tail(1024, "dftmm") == 513
     # explicit env radix bypasses the window
     monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "8")
     assert F._perm_radix(8192) == 8
@@ -97,8 +84,7 @@ def test_perm_signs_shift_theorem(rng):
 
 def test_perm_radix16_matches_numpy(rng, monkeypatch):
     """BBCAT_DSP_PERM_RADIX=16 (halved stage matmul, doubled radix stage):
-    forward and inverse still match numpy, signs/bins/permutation agree,
-    and the Pallas kernels follow the selected radix."""
+    forward and inverse still match numpy, signs/bins/permutation agree."""
     monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "16")
     n = 8192
     r = F._perm_radix(n)
@@ -119,21 +105,6 @@ def test_perm_radix16_matches_numpy(rng, monkeypatch):
     sp = np.stack([ps.real, ps.imag]).astype(np.float32)
     y = np.asarray(F._perm_irfft_tail(jnp.asarray(sp), n, prec="highest"))
     assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
-
-    # kernels at radix 16 (interpret) == XLA formulation — 16 rows so the
-    # hook's rows >= 8 gate actually engages the kernel
-    xk = rng.standard_normal((16, n // 2)).astype(np.float32)
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "0")
-    f_ref = np.asarray(F._perm_rfft_half(jnp.asarray(xk), n))
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-    jax.clear_caches()
-    f_got = np.asarray(F._perm_rfft_half(jnp.asarray(xk), n))
-    jax.clear_caches()
-    assert not np.array_equal(f_got, f_ref), (
-        "kernel path produced bit-identical output — hook likely never "
-        "engaged the Pallas kernel")
-    sf = np.abs(f_ref).max()
-    np.testing.assert_allclose(f_got / sf, f_ref / sf, atol=high_atol())
 
 
 def test_perm_radix32_matches_numpy(rng, monkeypatch):
@@ -182,8 +153,8 @@ def test_cmatmul_karatsuba_matches_classic(rng, monkeypatch):
 
 @pytest.fixture
 def force_dftmm(monkeypatch):
-    """Route the default backend to dftmm on CPU so the permuted layout
-    engages exactly as it would on TPU."""
+    """Route the default backend to dftmm so the permuted layout engages
+    wherever a radix applies."""
     monkeypatch.setattr(F, "default_backend", lambda: "dftmm")
     jax.clear_caches()
     yield
@@ -255,44 +226,6 @@ def test_nonuniform_perm_tail_matches_xla(rng, force_dftmm):
     assert snr_db(exp, got) > 100.0
 
 
-@pytest.mark.parametrize("n", [4096, 8192])
-def test_perm_fft_pallas_kernels_match_xla(rng, n, monkeypatch):
-    """Fused Pallas permuted transforms (interpret mode) == the XLA
-    formulation, forward and inverse, including through the hook."""
-    rows = 16
-    x = rng.standard_normal((rows, n // 2)).astype(np.float32)
-    spec_in = rng.standard_normal((2, rows, F.spectral_nbins(n, "dftmm"))
-                                  ).astype(np.float32)
-
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "0")
-    ref_f = np.asarray(F._perm_rfft_half(jnp.asarray(x), n))
-    ref_i = np.asarray(F._perm_irfft_tail(jnp.asarray(spec_in), n))
-
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-    jax.clear_caches()
-    got_f = np.asarray(F._perm_rfft_half(jnp.asarray(x), n))
-    got_i = np.asarray(F._perm_irfft_tail(jnp.asarray(spec_in), n))
-    jax.clear_caches()
-
-    sf = np.abs(ref_f).max()
-    si = np.abs(ref_i).max()
-    # kernel reproduces HIGH precision by manual bf16 operand splitting;
-    # XLA's HIGH is the same 3-pass scheme, residual ~1e-6 relative
-    # (wider band under karatsuba — see high_atol)
-    np.testing.assert_allclose(got_f / sf, ref_f / sf, atol=high_atol())
-    np.testing.assert_allclose(got_i / si, ref_i / si, atol=high_atol())
-
-    # leading-dim handling through the engine-shaped call [P, C, m]
-    x4 = rng.standard_normal((4, 4, n // 2)).astype(np.float32)
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "0")
-    ref4 = np.asarray(F._perm_rfft_half(jnp.asarray(x4), n))
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-    jax.clear_caches()
-    got4 = np.asarray(F._perm_rfft_half(jnp.asarray(x4), n))
-    jax.clear_caches()
-    np.testing.assert_allclose(got4 / sf, ref4 / sf, atol=high_atol())
-
-
 def test_nonuniform_perm_crossfade_matches_xla(rng, force_dftmm):
     """Click-free IR exchange with the tail in the permuted layout:
     super-block streaming with a mid-stream set_filter matches the std
@@ -335,62 +268,6 @@ def test_nonuniform_perm_crossfade_matches_xla(rng, force_dftmm):
     assert snr_db(exp, got) > 100.0
 
 
-@pytest.mark.parametrize("radix", [8, 16])
-def test_all_kernels_forced_end_to_end(rng, force_dftmm, monkeypatch, radix):
-    """Integration: grouped tail MAC + fused head + perm-FFT kernels ALL
-    forced at once (interpret mode) through the public engine — the
-    config-#5 hot path composition — against scipy."""
-    from scipy.signal import fftconvolve
-
-    from bbcat_dsp_tpu.convolve import NonUniformConvolver
-
-    monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", str(radix))
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_MAC", "1")
-    monkeypatch.setenv("BBCAT_DSP_PALLAS_PERMFFT", "1")
-    jax.clear_caches()
-    try:
-        C, B, ratio = 16, 256, 8
-        B2 = B * ratio  # tail FFT n=4096 -> perm layout
-        N = 2 * B2 + 4 * B2
-        ir = (rng.standard_normal((C, N)) * 0.2).astype(np.float64)
-        x = rng.standard_normal((C, 8 * B2)).astype(np.float32)
-        conv = NonUniformConvolver(ir, block=B, ratio=ratio)
-        y = np.asarray(conv.process(jnp.asarray(x)))
-        ref = np.stack([
-            fftconvolve(x[c].astype(np.float64), ir[c])[: x.shape[1]]
-            for c in range(C)
-        ])
-        assert snr_db(ref, y) > 90.0
-    finally:
-        jax.clear_caches()
-
-
-def test_grouped_mac_kernel_perm_signs(rng):
-    """The xt-layout grouped MAC kernel with a sectioned sign pattern
-    (permuted layout) matches the plain-python reference."""
-    from bbcat_dsp_tpu.ops.pallas import xt_grouped_mac_pallas
-
-    P, C = 3, 16
-    sec = 129  # pretend n1/2+1 = 129, radix 4 worth of sections
-    Fbins = 4 * sec
-    signs = (1.0 - 2.0 * ((np.arange(Fbins) // sec) % 2)).astype(np.float32)
-    q = rng.standard_normal((2, P, C, Fbins)).astype(np.float32)
-    xt = rng.standard_normal((2, P, C, Fbins)).astype(np.float32)
-    h = rng.standard_normal((2, P, C, Fbins)).astype(np.float32)
-    slot0 = 1
-    out = xt_grouped_mac_pallas(
-        jnp.asarray(q), jnp.asarray(xt), jnp.asarray(h),
-        slot0, sign_section=sec, interpret=True)
-    tpast = q[:, (np.arange(P) + slot0) % P]
-    tseq = np.concatenate([tpast, xt], axis=1)
-    w = (tseq[:, :-1] + signs * tseq[:, 1:]).astype(np.float32)
-    Wc, Hc = w[0] + 1j * w[1], h[0] + 1j * h[1]
-    ref = np.stack([
-        sum(Wc[P - 1 + j - p] * Hc[p] for p in range(P)) for j in range(P)])
-    got = np.asarray(out)[0] + 1j * np.asarray(out)[1]
-    np.testing.assert_allclose(got, ref, atol=2e-5)
-
-
 def test_unpermute_inverts_permute(rng):
     """unpermute_half_spectrum is the exact inverse of
     permute_half_spectrum (both directions, incl. the redundant
@@ -412,7 +289,7 @@ def test_unpermute_inverts_permute(rng):
 
 def test_engine_constructor_falls_back_when_perm_build_fails(
         rng, force_dftmm, monkeypatch):
-    """VERDICT r2 #3: if the permuted-layout program fails to BUILD on the
+    """If the permuted-layout program fails to BUILD on the
     target backend, the engine constructor falls back to the standard
     layout with a warning and still produces a working convolver."""
     from bbcat_dsp_tpu.convolve import BlockConvolver
@@ -440,53 +317,3 @@ def test_engine_constructor_falls_back_when_perm_build_fails(
 
     exp = fftconvolve(x.astype(np.float64), ir)[: 4 * B]
     assert snr_db(exp, got) > 90.0
-
-
-def test_fused_head_rejects_perm_layout(force_dftmm):
-    """VERDICT r2 #7: calling the fused head super-kernel directly with a
-    perm-layout head size fails loudly instead of returning wrong audio."""
-    from bbcat_dsp_tpu.ops.pallas.fused_head import fused_head_pallas
-
-    B = 2048  # 2*B = 4096 resolves perm under dftmm
-    assert F.half_engine_layout(2 * B, "dftmm") == "perm"
-    C, P, Fb = 8, 2, F.spectral_nbins(2 * B, "dftmm")
-    x = jnp.zeros((C, 2 * B))
-    carry = jnp.zeros((2, P, C, Fb))
-    prev = jnp.zeros((2, C, Fb))
-    H = jnp.zeros((2, P, C, Fb))
-    with pytest.raises(ValueError, match="standard spectral layout"):
-        fused_head_pallas(x, carry, prev, H, B, interpret=True)
-
-
-def test_perm_fft_pallas_pads_odd_row_counts(rng, monkeypatch):
-    """Direct API calls with row counts not divisible by the tile size are
-    padded (not collapsed into one whole-batch VMEM tile) and match the
-    XLA formulation exactly."""
-    from bbcat_dsp_tpu.ops.pallas.perm_fft import (
-        perm_irfft_tail_pallas,
-        perm_rfft_half_pallas,
-    )
-
-    # pin the radix: the kernels take it explicitly (flat I/O carries no
-    # radix); the XLA reference path follows the env default (32 at this n)
-    monkeypatch.setenv("BBCAT_DSP_PERM_RADIX", "8")
-    n, r = 4096, 8
-    n1 = n // r
-    rows = 12  # not a multiple of 8
-    x = rng.standard_normal((rows, n // 2)).astype(np.float32)
-    got = np.asarray(perm_rfft_half_pallas(jnp.asarray(x), n, interpret=True,
-                                           radix=r))
-    exp = np.asarray(F._perm_rfft_half(jnp.asarray(x), n))
-    assert got.shape == (2, rows, r * (n1 // 2 + 1))
-    np.testing.assert_allclose(
-        got, exp, rtol=0, atol=np.abs(exp).max() * 1e-5)
-
-    spec = rng.standard_normal(
-        (2, rows, r * (n1 // 2 + 1))).astype(np.float32)
-    got_i = np.asarray(perm_irfft_tail_pallas(jnp.asarray(spec), n,
-                                              interpret=True))
-    exp_i = np.asarray(F._perm_irfft_tail(jnp.asarray(spec), n))
-    assert got_i.shape == (rows, n // 2)
-    np.testing.assert_allclose(
-        got_i, exp_i,
-        rtol=0, atol=np.abs(exp_i).max() * 1e-5)

@@ -280,7 +280,7 @@ def test_fuzz_biquads_vs_compiled_reference(ref_dsp, rng):
 
 
 def test_dw_ramp_vs_compiled_reference_hard_filters(ref_dsp, rng):
-    """VERDICT r1 #5, hard-filter ramp conformance (C=64, T=4096,
+    """Hard-filter ramp conformance (C=64, T=4096,
     near-unit-circle poles).  Three pinned facts:
 
     1. The compiled reference casts y to float32 INSIDE its feedback path
